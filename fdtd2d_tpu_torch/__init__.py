@@ -1,0 +1,18 @@
+"""fdtd2d_tpu_torch — the PyTorch/CUDA port of fdtd2d_tpu.
+
+Module paths mirror the JAX package (``fdtd2d_tpu``), which stays the
+reference the port is tested against:
+
+- ``core``  — Yee-grid state, scenes and materials, sources, physics guards.
+- ``fdtd``  — the TE leapfrog step as torch ops and the rollout loop.
+- ``ops``   — hand-written CUDA kernels (built with nvcc at first use) and
+              their plain PyTorch versions.
+- ``utils`` — timers and the GCells/s counter, timed with CUDA events.
+- ``viz``   — snapshot rendering and video export.
+
+The package imports ``torch`` and numpy and never ``jax``.
+"""
+
+__version__ = "0.1.0"
+
+from fdtd2d_tpu_torch import constants as constants

@@ -1,0 +1,89 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+The sources in ``ops/csrc/`` are compiled for Hopper (``sm_90a``) into one
+shared library with a plain C interface, at the first call that needs it,
+never at import. The library goes to ``build/kernels/<hash>/`` at the root of
+the checkout (listed in ``.gitignore``), keyed by a hash of the sources and
+the flags, so an edited source rebuilds. There is no fallback: a missing nvcc
+or a failed build raises ``RuntimeError`` with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+LIB_NAME = "libfdtd2d_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH, else ``$CUDA_HOME/bin/nvcc`` (default /usr/local/cuda)."""
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = os.path.join(home, "bin", "nvcc")
+        if os.access(candidate, os.X_OK):
+            path = candidate
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+            "kernels of fdtd2d_tpu_torch must be built on a machine with the "
+            "CUDA toolkit")
+    return path
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this version of the sources is not built yet;
+    return the library's path. nvcc's report (``-Xptxas -v``: registers,
+    shared memory, spills per kernel) is kept beside it as ``build.log``."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    out_dir = BUILD_DIR / _digest(sources)
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sources if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load the library once and declare its C signatures."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fdtd_fused_run.argtypes = [p, p, p, p, p, p, p,   # ez hx hy ce ch amp strips
+                                       i, i, i, i, i,         # N M nsteps sx sy
+                                       f, p]                  # coef stream
+        lib.fdtd_fused_run.restype = i
+        lib.fdtd_error_string.argtypes = [i]
+        lib.fdtd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib

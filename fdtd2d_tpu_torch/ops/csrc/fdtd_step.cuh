@@ -1,0 +1,75 @@
+// Per-cell arithmetic of one TE leapfrog step on the padded (N, M) layout.
+//
+// Row-major float32 fields: Ez, Hx, Hy, ce and ch are all (N, M); Hx's last
+// column and Hy's last row are phantom cells that no function here reads or
+// writes. The staging (which stage reads which stage's output) is the
+// caller's job; see fdtd_fused.cu. These bodies are meant to be reused as
+// the in-tile body of the temporally tiled kernel.
+//
+// Semantics: fdtd2d_tpu_torch/fdtd/step.py::fdtd_step (the plain path), itself
+// held against the float64 NumPy oracle fdtd2d_tpu/fdtd/reference.py.
+#pragma once
+
+namespace fdtd {
+
+constexpr int kBand = 5;            // Mur band width (MUR_BAND)
+constexpr int kStrip = kBand + 1;   // pre-step Ez values a band cell chain reads
+
+// H update at (i, j), 0 <= i < N-1, 0 <= j < M-1.
+__device__ __forceinline__ void h_update(const float* __restrict__ ez,
+                                         const float* __restrict__ ch,
+                                         float* __restrict__ hx,
+                                         float* __restrict__ hy,
+                                         int i, int j, int M) {
+  const int k = i * M + j;
+  const float e00 = ez[k];
+  const float c = ch[k];
+  hx[k] = hx[k] - c * (ez[k + M] - e00);
+  hy[k] = hy[k] + c * (ez[k + 1] - e00);
+}
+
+// Interior Ez update at (i, j), 1 <= i < N-1, 1 <= j < M-1.
+__device__ __forceinline__ void e_interior(float* __restrict__ ez,
+                                          const float* __restrict__ hx,
+                                          const float* __restrict__ hy,
+                                          const float* __restrict__ ce,
+                                          int i, int j, int M) {
+  const int k = i * M + j;
+  const float curl = (hy[k] - hy[k - 1]) - (hx[k] - hx[k - M]);
+  ez[k] = ez[k] + curl * ce[k];
+}
+
+// One Mur band chain: e[0] is the edge cell and e[s*es], s = 1..5, step
+// inward; p[s*ps] holds the pre-step Ez of the same cells. Cell s reads cell
+// s+1, which this chain also writes, so all six current values are loaded
+// before any store. Left band: e = &ez[i][0], es = +1; right band:
+// e = &ez[i][M-1], es = -1; top: e = &ez[0][j], es = +M; bottom:
+// e = &ez[N-1][j], es = -M. Seen from its edge, each band is the same update.
+__device__ __forceinline__ void mur_chain(float* e, int es, const float* p,
+                                          int ps, float coef) {
+  float cur[kStrip];
+  float prev[kStrip];
+#pragma unroll
+  for (int s = 0; s < kStrip; ++s) {
+    cur[s] = e[s * es];
+    prev[s] = p[s * ps];
+  }
+#pragma unroll
+  for (int s = 0; s < kBand; ++s) {
+    e[s * es] = prev[s + 1] + coef * (cur[s + 1] - prev[s]);
+  }
+}
+
+// Corner averaging value for cell (a, b), 0 <= a, b < 5, of one corner:
+// c points at the corner cell, rs and cs step inward along rows and columns.
+// Value = (c[a][b+1] + c[a+1][b]) / 2 in the corner's own frame. The
+// reference's four index patterns (pallas_fdtd.py:99-106) are this one
+// stencil seen from each corner: top-left (rs, cs) = (+M, +1), top-right
+// (+M, -1), bottom-left (-M, +1), bottom-right (-M, -1). Reads must all
+// happen before any cell of the corner is written.
+__device__ __forceinline__ float corner_value(const float* c, int rs, int cs,
+                                              int a, int b) {
+  return (c[a * rs + (b + 1) * cs] + c[(a + 1) * rs + b * cs]) * 0.5f;
+}
+
+}  // namespace fdtd

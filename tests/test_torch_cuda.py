@@ -1,0 +1,118 @@
+"""K1 on the card: the CUDA kernel against its plain version.
+
+These tests need an NVIDIA GPU and nvcc, and skip without them. The file
+imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from fdtd2d_tpu_torch import constants
+from fdtd2d_tpu_torch.core.grid import grid_init
+from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, simulate
+from fdtd2d_tpu_torch.fdtd.step import MUR_BAND, precompute_coefficients
+from fdtd2d_tpu_torch.ops import fdtd_fused
+
+DT, DX, FC = 5e-14, 1e-4, 30e9
+Z0 = 376.73  # vacuum impedance: scales the random H to the random Ez
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def boundary_cover(Ez, b=MUR_BAND):
+    """Smallest max |Ez| over the four Mur bands and the four corners,
+    relative to max |Ez| over the grid."""
+    parts = (Ez[b:-b, :b], Ez[b:-b, -b:], Ez[:b, b:-b], Ez[-b:, b:-b],
+             Ez[:b, :b], Ez[:b, -b:], Ez[-b:, :b], Ez[-b:, -b:])
+    return float(min(p.abs().max() for p in parts) / Ez.abs().max())
+
+
+@pytest.mark.parametrize("start", ["zero", "random"])
+@pytest.mark.parametrize("source", [(30, 25), (6, 8)])
+@pytest.mark.parametrize("kind", ["ricker", "sinusoidal"])
+def test_kernel_matches_plain_float64(dev, start, source, kind):
+    """An odd grid with a random medium, one run and two chunks. The float64
+    plain run takes the kernel's float32 coefficients and state; the kernel
+    differs from it by float32 rounding (FMA contraction, expf) only.
+
+    From a zero state the wave spreads about 18 cells in 120 steps, which
+    checks the source but leaves most of the Mur bands near zero. The random
+    state puts a field in every band and corner (asserted to be at least
+    1e-3 of max |Ez|, so that a wrong value there is about 100 times the
+    tolerance) and in the cells the step never writes."""
+    rows, cols = 61, 47
+    nsteps = 120 if start == "zero" else 60
+    rng = np.random.default_rng(0)
+    eps = constants.EPSILON_0 * (1.0 + 3.0 * rng.random((rows, cols)))
+    mu = np.full((rows, cols), constants.MU_0)
+    ce, ch, coef = precompute_coefficients(torch.tensor(eps, device=dev),
+                                           torch.tensor(mu, device=dev), DT, DX)
+    if start == "zero":
+        state = grid_init(rows, cols, torch.float32, dev)
+    else:
+        state = tuple(torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                   device=dev) / scale
+                      for shape, scale in (((rows, cols), 1.0), ((rows, cols - 1), Z0),
+                                           ((rows - 1, cols), Z0)))
+
+    before = fdtd_fused.launches
+    one = fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, DT, FC,
+                                          *source, nsteps, kind, 0)
+    two = fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, DT, FC,
+                                          *source, 25, kind, 0)
+    two = fdtd_fused.fdtd_multistep_fused(*two, ce, ch, coef, DT, FC, *source,
+                                          nsteps - 25, kind, 25)
+    plain = fdtd_fused.fdtd_multistep_fused_reference(
+        *(f.double() for f in state), ce.double(), ch.double(), coef.double(), DT, FC,
+        *source, nsteps, kind, 0)
+    torch.cuda.synchronize()
+    assert fdtd_fused.launches - before == 3 * 2 * nsteps
+    if start == "random":
+        assert boundary_cover(plain[0]) >= 1e-3
+    for k, c, p in zip(one, two, plain):
+        assert k.shape == p.shape and torch.equal(k, c)
+        err = float((k.double() - p).abs().max() / p.abs().max())
+        assert err <= 1e-5, f"relative error {err:.3e}"
+
+
+def test_simulate_auto_uses_kernel(dev):
+    N = 64
+    eps = np.full((N, N), constants.EPSILON_0)
+    mu = np.full((N, N), constants.MU_0)
+    cfg = FDTDConfig(dt=DT, dx=DX, nsteps=40, source_xy=(20, 33), source_fc=FC,
+                     nframes=4, device="cuda")
+    before = fdtd_fused.launches
+    (Ez, Hx, Hy), snaps = simulate(eps, mu, cfg)
+    assert fdtd_fused.launches - before == 3 * 40
+    plain, plain_snaps = simulate(eps, mu, dataclasses.replace(cfg, backend="torch",
+                                                               dtype=torch.float64))
+    for k, p in zip((Ez, Hx, Hy, snaps), (*plain, plain_snaps)):
+        assert float((k.double() - p).abs().max() / p.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["float64", "noncontiguous ce"])
+def test_kernel_raises_on_what_it_does_not_take(dev, case):
+    N = 32
+    Ez, Hx, Hy = (torch.zeros(s, device=dev) for s in ((N, N), (N, N - 1), (N - 1, N)))
+    ce, ch = torch.ones(N, N, device=dev), torch.ones(N - 1, N - 1, device=dev)
+    if case == "float64":
+        Ez, Hx, Hy, ce, ch = (t.double() for t in (Ez, Hx, Hy, ce, ch))
+    else:
+        ce = torch.ones(2 * N, N, device=dev)[::2]
+    before = fdtd_fused.launches
+    with pytest.raises(ValueError):
+        fdtd_fused.fdtd_multistep_fused(Ez, Hx, Hy, ce, ch, 0.5, DT, FC, 16, 16, 5,
+                                        "ricker", 0)
+    assert fdtd_fused.launches == before

@@ -1,0 +1,49 @@
+"""The trace summary of tools/profile_fdtd.py, on a synthetic Chrome trace."""
+
+import importlib.util
+import json
+from pathlib import Path
+
+import pytest
+
+_spec = importlib.util.spec_from_file_location(
+    "profile_fdtd", Path(__file__).resolve().parents[1] / "tools" / "profile_fdtd.py")
+profile_fdtd = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(profile_fdtd)
+
+
+@pytest.mark.parametrize("intervals, total", [
+    ([], 0.0),
+    ([(0.0, 2.0)], 2.0),
+    ([(5.0, 6.0), (0.0, 2.0), (1.0, 3.0)], 4.0),   # overlap counts once
+    ([(0.0, 10.0), (2.0, 3.0)], 10.0),             # nested
+])
+def test_union_us(intervals, total):
+    assert profile_fdtd.union_us(intervals) == total
+
+
+def test_summarize_busy_share_and_kernels(tmp_path):
+    events = [
+        {"cat": "kernel", "name": "a", "ts": 0.0, "dur": 30.0},
+        {"cat": "kernel", "name": "b", "ts": 10.0, "dur": 30.0},   # overlaps a by 20
+        {"cat": "kernel", "name": "a", "ts": 100.0, "dur": 30.0},
+        {"cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 200.0, "dur": 10.0},
+        {"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 500.0},
+    ]
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": events}))
+    s = profile_fdtd.summarize(trace, steps=2, wall_s=1e-3)
+    assert s["device_busy_ms"] == pytest.approx(0.08)    # 40 + 30 + 10 us
+    assert s["busy_share"] == pytest.approx(0.08)
+    assert s["memcpy_memset_ms"] == pytest.approx(0.01)
+    assert list(s["kernels"]) == ["a", "b"]
+    assert s["kernels"]["a"] == {"calls": 2, "total_us": 60.0, "us_per_call": 30.0,
+                                 "us_per_step": 30.0}
+
+
+def test_summarize_refuses_a_trace_without_device_kernels(tmp_path):
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        {"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 5.0}]}))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        profile_fdtd.summarize(trace, steps=1, wall_s=1.0)

@@ -1,0 +1,109 @@
+"""Device-time profile of one FDTD rollout on the GPU, with torch.profiler.
+
+    python tools/profile_fdtd.py [--size 2048] [--steps 200] [--out chiprun_out/profile]
+
+For each backend (``fused``, the K1 kernel, then ``torch``, the plain path)
+it runs the bench scene of ``bench.py``'s fdtd rows (2048^2 by default: a 4x
+dielectric block, Ricker source at the centre, fc 30 GHz, dt 5e-14 s, dx
+1e-4 m, float32) through ``simulate`` once to warm up, then once more from
+the warm-up's state under torch.profiler, with the scene already on the card.
+It writes each window's Chrome trace to ``--out`` and prints one JSON line per
+backend, then the card's name and power limit as nvidia-smi gives them:
+
+- ``wall_ms``: host clock around the profiled call, with the device
+  synchronized before and after, so it includes the profiler's host cost;
+- ``device_busy_ms``: the union of the trace's device intervals (kernels,
+  memcpy, memset), so that work that overlaps counts once;
+- ``busy_share``: ``device_busy_ms / wall_ms``;
+- ``kernels``: per kernel name, its calls, total and per-call microseconds,
+  and microseconds per step (total / steps).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def union_us(intervals) -> float:
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(intervals):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return total + (cur_end - cur_start if cur_end is not None else 0.0)
+
+
+def summarize(trace_path: Path, steps: int, wall_s: float) -> dict:
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
+    if not any(e["cat"] == "kernel" for e in device):
+        raise RuntimeError(f"{trace_path} holds no kernel on the device")
+    kernels = {}
+    for e in device:
+        if e["cat"] != "kernel":
+            continue
+        k = kernels.setdefault(e["name"], {"calls": 0, "total_us": 0.0})
+        k["calls"] += 1
+        k["total_us"] += e["dur"]
+    for k in kernels.values():
+        k["us_per_call"] = k["total_us"] / k["calls"]
+        k["us_per_step"] = k["total_us"] / steps
+    busy_us = union_us((e["ts"], e["ts"] + e["dur"]) for e in device)
+    memcpy_us = sum(e["dur"] for e in device if e["cat"] != "kernel")
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / (wall_s * 1e3),
+            "memcpy_memset_ms": memcpy_us / 1e3,
+            "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["total_us"]))}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--size", type=int, default=2048)
+    parser.add_argument("--steps", type=int, default=200)
+    parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "profile")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_fdtd: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from fdtd2d_tpu_torch import constants
+    from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, simulate
+    from fdtd2d_tpu_torch.utils.metrics import Timer, device_info
+
+    N, dev = args.size, torch.device("cuda:0")
+    eps = torch.full((N, N), constants.EPSILON_0, dtype=torch.float32, device=dev)
+    eps[N // 4 : N // 2, N // 4 : N // 3] *= 4.0
+    mu = torch.full((N, N), constants.MU_0, dtype=torch.float32, device=dev)
+    args.out.mkdir(parents=True, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for backend in ("fused", "torch"):
+        cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=args.steps, source_xy=(N // 2, N // 2),
+                         source_fc=30e9, backend=backend, device="cuda")
+        state, _ = simulate(eps, mu, cfg)
+        with torch.profiler.profile(activities=activities) as prof:
+            with Timer(dev) as timer:
+                simulate(eps, mu, cfg, state=state)
+        trace = args.out / f"trace_{backend}_{N}.json"
+        prof.export_chrome_trace(str(trace))
+        summary = summarize(trace, args.steps, timer.seconds)
+        print(json.dumps({"backend": backend, "size": N, "steps": args.steps,
+                          "trace": str(trace.relative_to(ROOT)) if trace.is_relative_to(ROOT)
+                          else str(trace), **summary}))
+    print(device_info()["nvidia_smi"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
