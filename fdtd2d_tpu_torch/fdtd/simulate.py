@@ -10,11 +10,14 @@ package's name for the same path:
 - ``"fused"``  (JAX ``"pallas"``) — the K1 CUDA kernel, float32
                                     (ops/fdtd_fused.py); CPU tensors take its
                                     plain version.
-- ``"ttiled"`` (JAX ``"ttiled"``) — the temporally tiled kernel K2; not ported
-                                    yet (ROADMAP Queue 2), so it raises.
-- ``"auto"``   — ``"torch"`` on the CPU; on a CUDA device ``"fused"`` for any
-                 grid with both sides >= 16 (K1 keeps the fields in HBM, so
-                 no on-chip memory ceiling applies), else it raises.
+- ``"ttiled"`` (JAX ``"ttiled"``) — the temporally tiled K2 CUDA kernel, K
+                                    steps per pass over 2D tiles, float32
+                                    (ops/fdtd_ttiled.py); CPU tensors take its
+                                    tile emulation.
+- ``"auto"``   — ``"torch"`` on the CPU. On a CUDA device the JAX package's
+                 rule: ``"fused"`` up to (2048+256)^2 cells with both sides
+                 >= 16, else ``"ttiled"`` where K2's planner admits the grid,
+                 else it raises (never the plain step on the card).
 
 The source is a scalar amplitude added at one node after each step, at
 global step ``offset + i``.
@@ -29,9 +32,16 @@ import torch
 
 from fdtd2d_tpu_torch.core.sources import source_amplitudes
 from fdtd2d_tpu_torch.fdtd.step import multistep, precompute_coefficients
-from fdtd2d_tpu_torch.ops.fdtd_fused import MIN_SIDE, fdtd_multistep_fused
+# Modules, not names: the kernel modules import fdtd.step, whose package
+# imports this module, so their names are read at call time.
+from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
 
 BACKENDS = ("auto", "torch", "fused", "ttiled")
+# Largest grid "auto" gives K1: the JAX package's limit for its VMEM-resident
+# kernel (fdtd2d_tpu/fdtd/simulate.py:35), kept so both packages pick the
+# same path. Whether K2 beats K1 below it on this card is PERF.md's open
+# question.
+FUSED_MAX_CELLS = (2048 + 256) * (2048 + 256)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,27 +63,32 @@ def resolve_backend(backend: str, shape: Tuple[int, int], device) -> str:
     """The backend that ``backend`` names for a grid of ``shape`` on ``device``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if backend == "ttiled":
-        raise NotImplementedError(
-            "the temporally tiled kernel (K2) is not ported yet: ROADMAP Queue 2")
     if backend != "auto":
         return backend
     device = torch.device(device)
     if device.type == "cpu":
         return "torch"
-    if device.type == "cuda" and min(shape) >= MIN_SIDE:
-        return "fused"
+    if device.type == "cuda" and min(shape) >= fdtd_fused.MIN_SIDE:
+        if shape[0] * shape[1] <= FUSED_MAX_CELLS:
+            return "fused"
+        try:
+            fdtd_ttiled.pick_sweep_depth(*shape)
+            return "ttiled"
+        except ValueError:
+            pass
     raise ValueError(f"backend 'auto' has no kernel for a {shape} grid on {device}")
 
 
 def _advance(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy, nsteps: int,
              source_kind: str, step_offset: int, backend: str):
     """Advance ``nsteps`` steps from global step ``step_offset``. The
-    ``"torch"`` backend updates the fields in place; ``"fused"`` returns new
+    ``"torch"`` backend updates the fields in place; the kernels return new
     tensors."""
-    if backend == "fused":
-        return fdtd_multistep_fused(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
-                                    nsteps, source_kind, step_offset)
+    if backend in ("fused", "ttiled"):
+        run = (fdtd_fused.fdtd_multistep_fused if backend == "fused"
+               else fdtd_ttiled.fdtd_multistep_ttiled)
+        return run(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy, nsteps, source_kind,
+                   step_offset)
     amps = source_amplitudes(source_kind, step_offset, nsteps, dt, fc,
                              Ez.dtype, Ez.device)
     return multistep(Ez, Hx, Hy, ce, ch, coef, amps, sx, sy)

@@ -48,35 +48,37 @@ def fdtd_step(Ez: torch.Tensor, Hx: torch.Tensor, Hy: torch.Tensor,
     (N-1,M-1)) or the padded one (all (N,M)): the slices below touch the same
     cells in both. Hx's last row and Hy's last column are never written, and
     the padded layout's phantom Hx column and Hy row are never read or written.
+    The fields may carry leading batch dimensions, which ``ce`` and ``ch``
+    broadcast over.
     """
     b = MUR_BAND
-    N, M = Ez.shape
-    pl, pr = Ez[:, : b + 1].clone(), Ez[:, M - b - 1 :].clone()
-    pt, pb = Ez[: b + 1, :].clone(), Ez[N - b - 1 :, :].clone()
+    N, M = Ez.shape[-2:]
+    pl, pr = Ez[..., :, : b + 1].clone(), Ez[..., :, M - b - 1 :].clone()
+    pt, pb = Ez[..., : b + 1, :].clone(), Ez[..., N - b - 1 :, :].clone()
 
     # -- H update (staggered curl of Ez) ------------------------------------
-    e00 = Ez[: N - 1, : M - 1]
+    e00 = Ez[..., : N - 1, : M - 1]
     chv = ch[: N - 1, : M - 1]
-    Hx[: N - 1, : M - 1] -= chv * (Ez[1:, : M - 1] - e00)
-    Hy[: N - 1, : M - 1] += chv * (Ez[: N - 1, 1:] - e00)
+    Hx[..., : N - 1, : M - 1] -= chv * (Ez[..., 1:, : M - 1] - e00)
+    Hy[..., : N - 1, : M - 1] += chv * (Ez[..., : N - 1, 1:] - e00)
 
     # -- Ez interior update --------------------------------------------------
-    curl_h = (Hy[1 : N - 1, 1 : M - 1] - Hy[1 : N - 1, : M - 2]) - (
-        Hx[1 : N - 1, 1 : M - 1] - Hx[: N - 2, 1 : M - 1]
+    curl_h = (Hy[..., 1 : N - 1, 1 : M - 1] - Hy[..., 1 : N - 1, : M - 2]) - (
+        Hx[..., 1 : N - 1, 1 : M - 1] - Hx[..., : N - 2, 1 : M - 1]
     )
-    Ez[1:-1, 1:-1] += curl_h * ce[1:-1, 1:-1]
+    Ez[..., 1:-1, 1:-1] += curl_h * ce[1:-1, 1:-1]
 
     # -- Mur bands: left/right, then top/bottom ------------------------------
-    Ez[1:-1, :b] = pl[1:-1, 1:] + coef * (Ez[1:-1, 1 : b + 1] - pl[1:-1, :b])
-    Ez[1:-1, -b:] = pr[1:-1, :b] + coef * (Ez[1:-1, -b - 1 : -1] - pr[1:-1, 1:])
-    Ez[:b, 1:-1] = pt[1:, 1:-1] + coef * (Ez[1 : b + 1, 1:-1] - pt[:b, 1:-1])
-    Ez[-b:, 1:-1] = pb[:b, 1:-1] + coef * (Ez[-b - 1 : -1, 1:-1] - pb[1:, 1:-1])
+    Ez[..., 1:-1, :b] = pl[..., 1:-1, 1:] + coef * (Ez[..., 1:-1, 1 : b + 1] - pl[..., 1:-1, :b])
+    Ez[..., 1:-1, -b:] = pr[..., 1:-1, :b] + coef * (Ez[..., 1:-1, -b - 1 : -1] - pr[..., 1:-1, 1:])
+    Ez[..., :b, 1:-1] = pt[..., 1:, 1:-1] + coef * (Ez[..., 1 : b + 1, 1:-1] - pt[..., :b, 1:-1])
+    Ez[..., -b:, 1:-1] = pb[..., :b, 1:-1] + coef * (Ez[..., -b - 1 : -1, 1:-1] - pb[..., 1:, 1:-1])
 
     # -- corner averaging (the reference's per-corner index choices) ---------
-    Ez[:b, :b] = (Ez[:b, 1 : b + 1] + Ez[1 : b + 1, :b]) * 0.5
-    Ez[:b, -b:] = (Ez[:b, -b - 1 : -1] + Ez[1 : b + 1, -b:]) * 0.5
-    Ez[-b:, :b] = (Ez[-b - 1 : -1, :b] + Ez[-b:, 1 : b + 1]) * 0.5
-    Ez[-b:, -b:] = (Ez[-b - 1 : -1, -b:] + Ez[-b:, -b - 1 : -1]) * 0.5
+    Ez[..., :b, :b] = (Ez[..., :b, 1 : b + 1] + Ez[..., 1 : b + 1, :b]) * 0.5
+    Ez[..., :b, -b:] = (Ez[..., :b, -b - 1 : -1] + Ez[..., 1 : b + 1, -b:]) * 0.5
+    Ez[..., -b:, :b] = (Ez[..., -b - 1 : -1, :b] + Ez[..., -b:, 1 : b + 1]) * 0.5
+    Ez[..., -b:, -b:] = (Ez[..., -b - 1 : -1, -b:] + Ez[..., -b:, -b - 1 : -1]) * 0.5
     return Ez, Hx, Hy
 
 
@@ -85,9 +87,9 @@ fdtd_step_padded = fdtd_step
 
 
 def multistep(Ez, Hx, Hy, ce, ch, coef, amps, sx: int, sy: int):
-    """``len(amps)`` steps, each followed by ``Ez[sx, sy] += amps[i]``;
+    """``len(amps)`` steps, each followed by ``Ez[..., sx, sy] += amps[i]``;
     in place on the fields (returned)."""
     for amp in amps:
         fdtd_step(Ez, Hx, Hy, ce, ch, coef)
-        Ez[sx, sy] += amp
+        Ez[..., sx, sy] += amp
     return Ez, Hx, Hy

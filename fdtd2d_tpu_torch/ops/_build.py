@@ -2,10 +2,11 @@
 
 The sources in ``ops/csrc/`` are compiled for Hopper (``sm_90a``) into one
 shared library with a plain C interface, at the first call that needs it,
-never at import. The library goes to ``build/kernels/<hash>/`` at the root of
-the checkout (listed in ``.gitignore``), keyed by a hash of the sources and
-the flags, so an edited source rebuilds. There is no fallback: a missing nvcc
-or a failed build raises ``RuntimeError`` with nvcc's output.
+never at import: one nvcc per ``.cu`` file, all started together, then one
+link. The library goes to ``build/kernels/<hash>/`` at the root of the
+checkout (listed in ``.gitignore``), keyed by a hash of the sources and the
+flags, so an edited source rebuilds. There is no fallback: a missing nvcc or
+a failed build raises ``RuntimeError`` with nvcc's output.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libfdtd2d_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -50,6 +51,12 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_logged(cmd, log: Path) -> subprocess.Popen:
+    """Start ``cmd`` with its output going to ``log``; return the process."""
+    with open(log, "w") as out:
+        return subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+
+
 def build() -> Path:
     """Compile the kernels if this version of the sources is not built yet;
     return the library's path. nvcc's report (``-Xptxas -v``: registers,
@@ -61,14 +68,26 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources if s.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
+    units = [s for s in sources if s.suffix == ".cu"]
+    objects = [out_dir / f"{s.stem}.{tag}.o" for s in units]
+    logs = [out_dir / f"{s.stem}.{tag}.log" for s in units]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(units, objects)]
+    procs = [_run_logged(cmd, log) for cmd, log in zip(cmds, logs)]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{log.read_text()}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    (out_dir / "build.log").write_text("".join(log.read_text() for log in logs))
+    for path in (*objects, *logs):
+        path.unlink()
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
 
@@ -83,6 +102,12 @@ def load() -> ctypes.CDLL:
                                        i, i, i, i, i,         # N M nsteps sx sy
                                        f, p]                  # coef stream
         lib.fdtd_fused_run.restype = i
+        lib.fdtd_ttiled_run.argtypes = [p, p, p, p, p, p,     # ez hx hy: a, then b
+                                        p, p, p,              # ce ch amp
+                                        i, i, i, i, i, i,     # N M TH TW K nsteps
+                                        i, i, i, i,           # WH WW sx sy
+                                        f, p]                 # coef stream
+        lib.fdtd_ttiled_run.restype = i
         lib.fdtd_error_string.argtypes = [i]
         lib.fdtd_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -10,9 +10,10 @@
 // Hx, Hy and writes Hx, Hy: 24 B. Launch (B) reads Ez, Hx, Hy, ce and writes
 // Ez: 20 B. So 44 B/cell/step against the data sheet's 3.35 TB/s at 700 W,
 // about 76 Gcell-steps/s at best; (C) touches only the boundary strips. One
-// fused pass would move 32 B (5 reads, 3 writes). Later work: fuse A and B
-// (needs Ez ping-pong buffers or a recomputed H halo), run several steps per
-// launch while the state fits in L2, and the temporally tiled kernel (K2).
+// fused pass would move 32 B (5 reads, 3 writes): the temporally tiled
+// kernel fdtd_ttiled.cu is such a pass at K = 1 (the halo H recomputed in
+// the tile) and divides the traffic by about K beyond. Later work here: run
+// several steps per launch while the state fits in L2.
 //
 // Per step, three launches on the caller's stream:
 //   (A) H update over [0, N-1) x [0, M-1), and a copy of the pre-step Ez
@@ -66,7 +67,9 @@ __global__ void h_update_and_save_strips(const float* __restrict__ ez,
   const int j = blockIdx.x * kTileX + threadIdx.x;
   const int i = blockIdx.y * kTileY + threadIdx.y;
   if (i >= N || j >= M) return;
-  if (i < N - 1 && j < M - 1) fdtd::h_update(ez, ch, hx, hy, i, j, M);
+  if (i < N - 1 && j < M - 1) {
+    fdtd::h_update(ez, ch[i * M + j], hx, hy, i * M + j, M);
+  }
 
   const Strips s = split_strips(strips, N, M);
   const float e = ez[i * M + j];
@@ -83,7 +86,7 @@ __global__ void e_interior_update(float* __restrict__ ez,
   const int j = blockIdx.x * kTileX + threadIdx.x;
   const int i = blockIdx.y * kTileY + threadIdx.y;
   if (i < 1 || i >= N - 1 || j < 1 || j >= M - 1) return;
-  fdtd::e_interior(ez, hx, hy, ce, i, j, M);
+  fdtd::e_interior(ez, hx, hy, ce[i * M + j], i * M + j, M);
 }
 
 // Single block. Every thread reaches every __syncthreads(): the stage loops

@@ -1,10 +1,12 @@
-// Per-cell arithmetic of one TE leapfrog step on the padded (N, M) layout.
+// Per-cell arithmetic of one TE leapfrog step on a row-major float32 layout.
 //
-// Row-major float32 fields: Ez, Hx, Hy, ce and ch are all (N, M); Hx's last
-// column and Hy's last row are phantom cells that no function here reads or
-// writes. The staging (which stage reads which stage's output) is the
-// caller's job; see fdtd_fused.cu. These bodies are meant to be reused as
-// the in-tile body of the temporally tiled kernel.
+// Ez, Hx and Hy share one layout whose row stride is `stride`: the padded
+// (N, M) fields in device memory (K1, stride M) or a window of them in
+// shared memory (K2, the window's row stride). Hx's last column and Hy's
+// last row are phantom cells that no function here reads or writes. The
+// update coefficients are passed by value, so the caller reads ce and ch
+// from wherever it keeps them. The staging (which stage reads which stage's
+// output) is the caller's job; see fdtd_fused.cu and fdtd_ttiled.cu.
 //
 // Semantics: fdtd2d_tpu_torch/fdtd/step.py::fdtd_step (the plain path), itself
 // held against the float64 NumPy oracle fdtd2d_tpu/fdtd/reference.py.
@@ -15,36 +17,34 @@ namespace fdtd {
 constexpr int kBand = 5;            // Mur band width (MUR_BAND)
 constexpr int kStrip = kBand + 1;   // pre-step Ez values a band cell chain reads
 
-// H update at (i, j), 0 <= i < N-1, 0 <= j < M-1.
-__device__ __forceinline__ void h_update(const float* __restrict__ ez,
-                                         const float* __restrict__ ch,
+// H update of the cell at index k, which has a row below it and a column to
+// its right (domain 0 <= i < N-1, 0 <= j < M-1); c is ch at the cell.
+__device__ __forceinline__ void h_update(const float* __restrict__ ez, float c,
                                          float* __restrict__ hx,
-                                         float* __restrict__ hy,
-                                         int i, int j, int M) {
-  const int k = i * M + j;
+                                         float* __restrict__ hy, int k,
+                                         int stride) {
   const float e00 = ez[k];
-  const float c = ch[k];
-  hx[k] = hx[k] - c * (ez[k + M] - e00);
+  hx[k] = hx[k] - c * (ez[k + stride] - e00);
   hy[k] = hy[k] + c * (ez[k + 1] - e00);
 }
 
-// Interior Ez update at (i, j), 1 <= i < N-1, 1 <= j < M-1.
+// Interior Ez update of the cell at index k, which has a row above it and a
+// column to its left (domain 1 <= i < N-1, 1 <= j < M-1); c is ce at the cell.
 __device__ __forceinline__ void e_interior(float* __restrict__ ez,
                                           const float* __restrict__ hx,
                                           const float* __restrict__ hy,
-                                          const float* __restrict__ ce,
-                                          int i, int j, int M) {
-  const int k = i * M + j;
-  const float curl = (hy[k] - hy[k - 1]) - (hx[k] - hx[k - M]);
-  ez[k] = ez[k] + curl * ce[k];
+                                          float c, int k, int stride) {
+  const float curl = (hy[k] - hy[k - 1]) - (hx[k] - hx[k - stride]);
+  ez[k] = ez[k] + curl * c;
 }
 
 // One Mur band chain: e[0] is the edge cell and e[s*es], s = 1..5, step
 // inward; p[s*ps] holds the pre-step Ez of the same cells. Cell s reads cell
 // s+1, which this chain also writes, so all six current values are loaded
 // before any store. Left band: e = &ez[i][0], es = +1; right band:
-// e = &ez[i][M-1], es = -1; top: e = &ez[0][j], es = +M; bottom:
-// e = &ez[N-1][j], es = -M. Seen from its edge, each band is the same update.
+// e = &ez[i][M-1], es = -1; top: e = &ez[0][j], es = +stride; bottom:
+// e = &ez[N-1][j], es = -stride. Seen from its edge, each band is the same
+// update.
 __device__ __forceinline__ void mur_chain(float* e, int es, const float* p,
                                           int ps, float coef) {
   float cur[kStrip];
@@ -64,9 +64,9 @@ __device__ __forceinline__ void mur_chain(float* e, int es, const float* p,
 // c points at the corner cell, rs and cs step inward along rows and columns.
 // Value = (c[a][b+1] + c[a+1][b]) / 2 in the corner's own frame. The
 // reference's four index patterns (pallas_fdtd.py:99-106) are this one
-// stencil seen from each corner: top-left (rs, cs) = (+M, +1), top-right
-// (+M, -1), bottom-left (-M, +1), bottom-right (-M, -1). Reads must all
-// happen before any cell of the corner is written.
+// stencil seen from each corner: top-left (rs, cs) = (+stride, +1), top-right
+// (+stride, -1), bottom-left (-stride, +1), bottom-right (-stride, -1). Reads
+// must all happen before any cell of the corner is written.
 __device__ __forceinline__ float corner_value(const float* c, int rs, int cs,
                                               int a, int b) {
   return (c[a * rs + (b + 1) * cs] + c[(a + 1) * rs + b * cs]) * 0.5f;

@@ -27,7 +27,7 @@ MIN_SIDE = 16     # smallest grid side the kernel takes
 launches = 0
 
 
-def _padded(a, N, M):
+def pad_field(a, N, M):
     """A new contiguous (N, M) tensor holding ``a`` at its top left, zero elsewhere."""
     out = a.new_zeros((N, M))
     out[: a.shape[0], : a.shape[1]] = a
@@ -38,7 +38,7 @@ def pad_state(Ez, Hx, Hy):
     """Pad staggered fields to a common (N, M) shape (phantom cells zero).
     Returns new contiguous tensors; ``Ez`` is copied too."""
     N, M = Ez.shape
-    return _padded(Ez, N, M), _padded(Hx, N, M), _padded(Hy, N, M)
+    return pad_field(Ez, N, M), pad_field(Hx, N, M), pad_field(Hy, N, M)
 
 
 def unpad_state(Ez, Hxp, Hyp):
@@ -55,7 +55,7 @@ def fdtd_multistep_fused_reference(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
     Ez, Hxp, Hyp = pad_state(Ez, Hx, Hy)
     amps = source_amplitudes(source_kind, step_offset, nsteps, dt, fc,
                              Ez.dtype, Ez.device)
-    multistep(Ez, Hxp, Hyp, ce, _padded(ch, N, M), coef, amps, sx, sy)
+    multistep(Ez, Hxp, Hyp, ce, pad_field(ch, N, M), coef, amps, sx, sy)
     return unpad_state(Ez, Hxp, Hyp)
 
 
@@ -67,7 +67,7 @@ def check_kernel_inputs(Ez, Hx, Hy, ce, ch, sx, sy, nsteps):
         if t.device != Ez.device:
             raise ValueError(f"{name} is on {t.device}, Ez on {Ez.device}")
         if t.dtype != torch.float32:
-            raise ValueError(f"the fused kernel is float32 only; {name} is {t.dtype}")
+            raise ValueError(f"the CUDA kernels take float32 only; {name} is {t.dtype}")
     shapes = {"Hx": ((N, M - 1), (N, M)), "Hy": ((N - 1, M), (N, M)),
               "ce": ((N, M),), "ch": ((N - 1, M - 1), (N, M))}
     for name, allowed in shapes.items():
@@ -76,6 +76,9 @@ def check_kernel_inputs(Ez, Hx, Hy, ce, ch, sx, sy, nsteps):
                              f"expected one of {allowed} for Ez {(N, M)}")
     if N < MIN_SIDE or M < MIN_SIDE:
         raise ValueError(f"grid {(N, M)} is smaller than {MIN_SIDE} a side")
+    if N * M >= 2**31:
+        raise ValueError(f"grid {(N, M)} has 2^31 cells or more: the kernels "
+                         "index a field with 32-bit ints")
     if not (0 <= sx < N and 0 <= sy < M):
         raise ValueError(f"source {(sx, sy)} lies outside the grid {(N, M)}")
     if nsteps < 0:
@@ -103,7 +106,7 @@ def fdtd_multistep_fused(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
     lib = _build.load()
     N, M = Ez.shape
     Ez, Hxp, Hyp = pad_state(Ez, Hx, Hy)
-    chp = _padded(ch, N, M)
+    chp = pad_field(ch, N, M)
     amps = source_amplitudes(source_kind, step_offset, nsteps, dt, fc,
                              torch.float32, Ez.device)
     strips = torch.empty(2 * N * S + 2 * S * M, dtype=torch.float32, device=Ez.device)

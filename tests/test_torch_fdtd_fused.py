@@ -99,6 +99,7 @@ def test_pad_unpad_roundtrip():
     ("shape", "Hx has shape"),
     ("small", "smaller than 16"),
     ("source", "outside the grid"),
+    ("huge", "32-bit"),
 ])
 def test_kernel_input_checks_raise(case, match):
     N, M = 20, 18
@@ -113,6 +114,10 @@ def test_kernel_input_checks_raise(case, match):
         fields, ce, ch = list(_zeros(12, M)), torch.ones(12, M), torch.ones(11, M - 1)
     elif case == "source":
         sx = N
+    elif case == "huge":  # 46341^2 > 2^31 cells, as expanded views of one element
+        n = 46341
+        fields = [torch.zeros(1, 1).expand(*s) for s in ((n, n), (n, n - 1), (n - 1, n))]
+        ce, ch = torch.ones(1, 1).expand(n, n), torch.ones(1, 1).expand(n - 1, n - 1)
     with pytest.raises(ValueError, match=match):
         fdtd_fused.check_kernel_inputs(*fields, ce, ch, sx, sy, 10)
 

@@ -47,3 +47,18 @@ def test_summarize_refuses_a_trace_without_device_kernels(tmp_path):
         {"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 5.0}]}))
     with pytest.raises(RuntimeError, match="no kernel"):
         profile_fdtd.summarize(trace, steps=1, wall_s=1.0)
+
+
+def test_idle_gaps():
+    gaps = profile_fdtd.idle_gaps([(10.0, 20.0), (0.0, 5.0), (12.0, 25.0), (40.0, 41.0)])
+    assert gaps == {"count": 2, "total_us": 20.0, "longest": [[25.0, 15.0], [5.0, 5.0]]}
+    assert profile_fdtd.idle_gaps([]) == {"count": 0, "total_us": 0, "longest": []}
+
+
+def test_backends_option():
+    """The K2 profile at 4096^2 is ``--size 4096 --backends ttiled``."""
+    args = profile_fdtd.parse_args(["--size", "4096", "--backends", "ttiled,fused"])
+    assert args.size == 4096 and args.backends == ["ttiled", "fused"]
+    assert profile_fdtd.parse_args([]).backends == ["fused", "torch"]
+    with pytest.raises(SystemExit):
+        profile_fdtd.parse_args(["--backends", "pallas"])

@@ -32,16 +32,23 @@ def _scene(rows, cols):
     return eps, np.full((rows, cols), constants.MU_0)
 
 
-@pytest.mark.parametrize("nsteps,nframes", [(30, 3), (31, 4)])
-def test_simulate_auto_matches_jax_pallas(nsteps, nframes):
+@pytest.mark.parametrize("nsteps,nframes,backend,jax_backend,shape", [
+    pytest.param(30, 3, "auto", "pallas", (48, 64), id="30-3"),
+    pytest.param(31, 4, "auto", "pallas", (48, 64), id="31-4"),
+    pytest.param(21, 4, "ttiled", "ttiled", (64, 128), id="ttiled-21-4"),
+])
+def test_simulate_auto_matches_jax_pallas(nsteps, nframes, backend, jax_backend, shape):
     """auto on a CPU tensor vs the JAX pallas backend (interpreted on CPU);
-    31 steps in 4 frames leaves a remainder after the last frame."""
-    rows, cols = 48, 64
+    31 steps in 4 frames leaves a remainder after the last frame. The ttiled
+    case runs the port's tile emulation against the JAX ttiled kernel
+    (interpreted) at the size of tests/test_fdtd_ttiled.py, 5-step frames
+    plus a 1-step remainder."""
+    rows, cols = shape
     eps, mu = _scene(rows, cols)
     kw = dict(dt=DT, dx=DX, nsteps=nsteps, source_xy=(rows // 2, cols // 2),
               source_fc=FC, nframes=nframes)
-    (jE, jHx, jHy), jsnaps = jax_simulate(eps, mu, JaxConfig(backend="pallas", **kw))
-    (Ez, Hx, Hy), snaps = simulate(eps, mu, FDTDConfig(backend="auto", device="cpu", **kw))
+    (jE, jHx, jHy), jsnaps = jax_simulate(eps, mu, JaxConfig(backend=jax_backend, **kw))
+    (Ez, Hx, Hy), snaps = simulate(eps, mu, FDTDConfig(backend=backend, device="cpu", **kw))
     assert snaps.shape == jsnaps.shape
     for ours, ref in ((Ez, jE), (Hx, jHx), (Hy, jHy), (snaps, jsnaps)):
         assert tuple(ours.shape) == ref.shape and ours.dtype == torch.float32
@@ -85,11 +92,15 @@ def test_state_handover_from_jax(padded):
 def test_resolve_backend():
     assert resolve_backend("auto", (64, 64), "cpu") == "torch"
     assert resolve_backend("auto", (2048, 2048), "cuda") == "fused"
+    assert resolve_backend("auto", (2304, 2304), "cuda") == "fused"
+    assert resolve_backend("auto", (4096, 4096), "cuda") == "ttiled"
+    assert resolve_backend("auto", (8192, 8192), "cuda") == "ttiled"
     assert resolve_backend("fused", (64, 64), "cpu") == "fused"
+    assert resolve_backend("ttiled", (64, 64), "cpu") == "ttiled"
     with pytest.raises(ValueError, match="no kernel"):
         resolve_backend("auto", (12, 64), "cuda")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        resolve_backend("ttiled", (64, 64), "cpu")
+    with pytest.raises(ValueError, match="no kernel"):
+        resolve_backend("auto", (12, 500000), "cuda")
     with pytest.raises(ValueError, match="unknown backend"):
         resolve_backend("pallas", (64, 64), "cpu")
 
@@ -108,6 +119,7 @@ def test_float64_plain_path_matches_oracle_tightly():
 def test_port_imports_no_jax():
     code = ("import sys, fdtd2d_tpu_torch, fdtd2d_tpu_torch.fdtd, fdtd2d_tpu_torch.cli, "
             "fdtd2d_tpu_torch.core, fdtd2d_tpu_torch.ops.fdtd_fused, "
+            "fdtd2d_tpu_torch.ops.fdtd_ttiled, fdtd2d_tpu_torch.ops.fdtd_blocked, "
             "fdtd2d_tpu_torch.utils, fdtd2d_tpu_torch.viz\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'fdtd2d_tpu'))\n"
             "assert not bad, bad")

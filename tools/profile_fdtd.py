@@ -1,22 +1,30 @@
 """Device-time profile of one FDTD rollout on the GPU, with torch.profiler.
 
-    python tools/profile_fdtd.py [--size 2048] [--steps 200] [--out chiprun_out/profile]
+    python tools/profile_fdtd.py [--size 2048] [--steps 200] [--backends fused,torch]
+                                 [--out DIR]
+    python tools/profile_fdtd.py --size 4096 --backends ttiled,fused
 
-For each backend (``fused``, the K1 kernel, then ``torch``, the plain path)
-it runs the bench scene of ``bench.py``'s fdtd rows (2048^2 by default: a 4x
-dielectric block, Ricker source at the centre, fc 30 GHz, dt 5e-14 s, dx
-1e-4 m, float32) through ``simulate`` once to warm up, then once more from
-the warm-up's state under torch.profiler, with the scene already on the card.
-It writes each window's Chrome trace to ``--out`` and prints one JSON line per
-backend, then the card's name and power limit as nvidia-smi gives them:
+For each backend of ``--backends`` (``fused``: K1; ``ttiled``: K2; ``torch``:
+the plain path) it runs the bench scene of ``bench.py``'s fdtd rows (2048^2
+by default: a 4x dielectric block, Ricker source at the centre, fc 30 GHz,
+dt 5e-14 s, dx 1e-4 m, float32) through ``simulate`` once to warm up, then
+once more from the warm-up's state under torch.profiler, with the scene
+already on the card. It writes each window's Chrome trace to ``--out`` (by
+default ``profile/`` in the repo's git-ignored output directory) and
+prints one JSON line per backend, then the card's name and power limit as
+nvidia-smi gives them:
 
 - ``wall_ms``: host clock around the profiled call, with the device
   synchronized before and after, so it includes the profiler's host cost;
 - ``device_busy_ms``: the union of the trace's device intervals (kernels,
   memcpy, memset), so that work that overlaps counts once;
 - ``busy_share``: ``device_busy_ms / wall_ms``;
-- ``kernels``: per kernel name, its calls, total and per-call microseconds,
-  and microseconds per step (total / steps).
+- ``idle_gaps``: the gaps between device intervals, from the first device
+  interval to the last: their count, total, and the longest five with their
+  start, in microseconds from the first device interval;
+- ``kernels``: per kernel name, its calls, total and per-call microseconds
+  (for K2 a call is one sweep of K steps), and microseconds per step
+  (total / steps).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+BACKENDS = ("fused", "ttiled", "torch")
 
 
 def union_us(intervals) -> float:
@@ -43,6 +52,21 @@ def union_us(intervals) -> float:
         else:
             cur_end = max(cur_end, end)
     return total + (cur_end - cur_start if cur_end is not None else 0.0)
+
+
+def idle_gaps(intervals, top: int = 5) -> dict:
+    """Gaps between the union of ``(start, end)`` intervals, from the first
+    start to the last end: count, total, and the ``top`` longest as
+    ``[offset from the first start, length]``."""
+    gaps, first, cur_end = [], None, None
+    for start, end in sorted(intervals):
+        if first is None:
+            first = start
+        elif start > cur_end:
+            gaps.append([cur_end - first, start - cur_end])
+        cur_end = end if cur_end is None else max(cur_end, end)
+    return {"count": len(gaps), "total_us": sum(g[1] for g in gaps),
+            "longest": sorted(gaps, key=lambda g: -g[1])[:top]}
 
 
 def summarize(trace_path: Path, steps: int, wall_s: float) -> dict:
@@ -60,20 +84,35 @@ def summarize(trace_path: Path, steps: int, wall_s: float) -> dict:
     for k in kernels.values():
         k["us_per_call"] = k["total_us"] / k["calls"]
         k["us_per_step"] = k["total_us"] / steps
-    busy_us = union_us((e["ts"], e["ts"] + e["dur"]) for e in device)
+    intervals = [(e["ts"], e["ts"] + e["dur"]) for e in device]
+    busy_us = union_us(intervals)
     memcpy_us = sum(e["dur"] for e in device if e["cat"] != "kernel")
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
             "busy_share": busy_us / 1e3 / (wall_s * 1e3),
-            "memcpy_memset_ms": memcpy_us / 1e3,
+            "memcpy_memset_ms": memcpy_us / 1e3, "idle_gaps": idle_gaps(intervals),
             "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["total_us"]))}
 
 
-def main(argv=None) -> int:
+def backend_list(text: str):
+    """``--backends``: a comma-separated list of names in BACKENDS."""
+    names = [name for name in text.split(",") if name]
+    bad = [name for name in names if name not in BACKENDS]
+    if bad or not names:
+        raise argparse.ArgumentTypeError(f"backends must be among {BACKENDS}, got {text!r}")
+    return names
+
+
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--size", type=int, default=2048)
     parser.add_argument("--steps", type=int, default=200)
+    parser.add_argument("--backends", type=backend_list, default=["fused", "torch"])
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "profile")
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fdtd: no CUDA device", file=sys.stderr)
         return 1
@@ -88,7 +127,7 @@ def main(argv=None) -> int:
     mu = torch.full((N, N), constants.MU_0, dtype=torch.float32, device=dev)
     args.out.mkdir(parents=True, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for backend in ("fused", "torch"):
+    for backend in args.backends:
         cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=args.steps, source_xy=(N // 2, N // 2),
                          source_fc=30e9, backend=backend, device="cuda")
         state, _ = simulate(eps, mu, cfg)
