@@ -65,6 +65,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    entry points with the state on the card; CUDA events after a warm-up, in
    turns (plain, K1, K2[, K3, K3], K2, K1, plain).
 
+10. FDFD operator on the ``fdfd512`` scene (bench.py:126-134: 512^2, dx
+    1e-3 m, omega 17e9, a 2.5x block, PML 40): the complex64 apply and
+    diagonal on the card against the complex128 ones on the CPU (<= 1e-5
+    relative); the five-point form against apply in complex128 on the card
+    (<= 1e-12).
+11. ``fdfd512`` (bench.py:137-164) through ``DirectSolver``: the factor
+    time (the first ``torch.linalg.inv`` call's start-up apart), a warm-up
+    and a timed warm solve with ``rhs_scale=1.0, refine_target=1e-6``;
+    ``trace[-2] < 1e-5`` as the bench asserts; the returned complex128
+    iterate's true residual recomputed on the CPU with the plain complex128
+    operator (<= 1e-6). At 128^2 (the bench's CPU size) the refined field
+    against scipy's spsolve of the matrix assembled from the complex128
+    five-point coefficients (<= 1e-5). TF32 must be off.
+12. ``direct1024`` and ``direct1024batched`` (bench.py:228-270) on the hard
+    binary scene: factor time, a timed warm solve to 1e-6, then 16 sources
+    from ``default_rng(0)`` through ``solve_batched``, timed per source; the
+    worst true residual < 1e-5; each batched field against its single solve
+    (<= 1e-5 relative in the 2-norm).
+13. The checkpointed mode at 512^2, stride 32: its raw complex64 backsolve
+    against the stored-factor one (<= 1e-5), its refined residual (<= 1e-6),
+    factor and warm-solve times. It runs right after phase 11, while that
+    phase's stored factors are still on the card, and before phase 12.
+14. ``fdfd512iter`` (bench.py:167-194): FDM-FGMRES, restart 20, tol 1e-6,
+    maxiter 3000, a timed warm solve; relative residual < 1e-4 (and its
+    complex128 residual on the CPU), iterations.
+15. The CLI: ``python -m fdtd2d_tpu_torch.cli fdfd --size 512 --solver
+    direct|krylov --device cuda --out ""``; direct's f64-iterate residual
+    <= --tol, krylov's residual < 10 --tol.
+Each FDFD phase checks before it prints a time, and reads the peak device
+memory (``torch.cuda.max_memory_allocated``) after its work.
+
 Tolerance: 1e-5 relative (max |kernel - plain| / max |plain|), the bound of
 the float64 oracle tests (tests/test_fdtd_oracle.py). The kernel and the
 plain path differ in rounding only: nvcc contracts a + b*c into FMA and
@@ -74,7 +105,8 @@ inside that bound at float32.
 Before its last line the script prints one JSON object with each kernel's
 launches (counted in its main-path run of phase 4 or 8), error and times, one
 with the GCells/s of phase 5, one with the times and errors of phases 6-9,
-and the nvidia-smi line; its last line is
+one with the times, residuals and peak memory of phases 10-15, and the
+nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -203,6 +235,249 @@ def bench_scene(N: int, constants):
     eps[N // 4 : N // 2, N // 4 : N // 3] *= 4.0
     mu = np.full((N, N), constants.MU_0, np.float32)
     return eps, mu
+
+
+def fdfd512_scene(N: int, omega: float, constants):
+    """The scene of bench.py's fdfd512 rows: a 2.5x block, and a point
+    source that already carries -1j*omega."""
+    eps = np.full((N, N), constants.EPSILON_0)
+    eps[N // 3 : 2 * N // 3, N // 4 : N // 2] *= 2.5
+    mu = np.full((N, N), constants.MU_0)
+    src = np.zeros((N, N), np.complex128)
+    src[N // 2, N // 2] = -1j * omega
+    return eps, mu, src
+
+
+def complex_rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |x - ref| / max |ref| in complex128, on x's device."""
+    ref = ref.to(x.device, torch.complex128)
+    return float((x.to(torch.complex128) - ref).abs().max() / ref.abs().max())
+
+
+def norm_rel(x: torch.Tensor, ref: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(x.to(ref.dtype) - ref) / torch.linalg.vector_norm(ref))
+
+
+def cpu_residual(op128_cpu, b, x) -> float:
+    """True relative residual of ``x`` with the plain complex128 operator
+    on the CPU."""
+    b = b.cpu().to(torch.complex128)
+    r = op128_cpu.residual(b, x.cpu().to(torch.complex128))
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+
+
+def timed(fn, dev):
+    """(result, seconds) of ``fn()`` on the host clock, the device
+    synchronized before and after."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def fdfd_phases(dev) -> dict:
+    """Phases 10-15: the FDFD path on the card. Returns the numbers of the
+    ``{"fdfd": ...}`` line."""
+    import re
+    import subprocess
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from fdtd2d_tpu_torch import constants
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver, five_point_coefficients
+    from fdtd2d_tpu_torch.fdfd.solver import resolve_preconditioner, solve_fdfd
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    out = {}
+    dx, omega, N = 1e-3, 17e9, 512
+    eps, mu, src = fdfd512_scene(N, omega, constants)
+
+    # -- 10. operator -------------------------------------------------------------
+    t0 = phase("10. FDFD operator, fdfd512 scene: c64 on the card vs c128 on the CPU")
+    torch.cuda.reset_peak_memory_stats(dev)
+    op32 = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex64, device=dev)
+    op128 = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex128, device=dev)
+    op128_cpu = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex128)
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.standard_normal((N, N)) + 1j * rng.standard_normal((N, N)))
+    errs = {"apply_c64": complex_rel_err(op32.apply(x.to(dev, torch.complex64)), op128_cpu.apply(x)),
+            "diagonal_c64": complex_rel_err(op32.diagonal(), op128_cpu.diagonal())}
+    d, e, w, s_, n = five_point_coefficients(op128)
+    xd = x.to(dev)
+    shifted = (torch.nn.functional.pad(xd[:, 2:], (0, 2)), torch.nn.functional.pad(xd[:, :-2], (2, 0)),
+               torch.nn.functional.pad(xd[2:], (0, 0, 0, 2)), torch.nn.functional.pad(xd[:-2], (0, 0, 2, 0)))
+    five = d * xd + e * shifted[0] + w * shifted[1] + s_ * shifted[2] + n * shifted[3]
+    errs["five_point_c128"] = complex_rel_err(five, op128.apply(xd))
+    for name, bound in (("apply_c64", TOL), ("diagonal_c64", TOL), ("five_point_c128", 1e-12)):
+        if not errs[name] <= bound:
+            raise AssertionError(f"operator {name}: relative error {errs[name]:.3e} > {bound}")
+    out["operator"] = {"rel_err": errs, "peak_gb": peak_gb(dev)}
+    del op128, d, e, w, s_, n, five, shifted, xd
+    done(t0, ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    # -- 11. fdfd512, direct ----------------------------------------------------------
+    t0 = phase("11. fdfd512: DirectSolver at 512^2, refine to 1e-6, rhs_scale 1.0")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the pivotless c64 block-LU needs full-fp32 matmuls")
+    _, inv_startup_s = timed(lambda: torch.linalg.inv(
+        torch.eye(8, dtype=torch.complex64, device=dev)), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    solver, factor_s = timed(lambda: DirectSolver(eps, mu, dx, dx, omega, device=dev), dev)
+    kw = dict(rhs_scale=1.0, refine_target=1e-6)
+    (_, trace_first), first_s = timed(lambda: solver.solve(src, **kw), dev)
+    (x512, trace), solve_s = timed(lambda: solver.solve(src, **kw), dev)
+    if not trace[-2] < 1e-5 or not trace[-2] <= kw["refine_target"]:
+        raise AssertionError(f"direct 512^2 solve did not converge: {trace}")
+    (x512_64, trace64), split_s = timed(lambda: solver.solve(src, return_split=True, **kw), dev)
+    b512 = torch.tensor(src)
+    res_cpu = cpu_residual(op128_cpu, b512, x512_64)
+    if not res_cpu <= 1e-6:
+        raise AssertionError(f"the returned c128 iterate's CPU residual is {res_cpu:.3e}")
+    peak = peak_gb(dev)
+    # bench.py's CPU size: the refined field against scipy's spsolve
+    n128 = 128
+    eps_s, mu_s, src_s = fdfd512_scene(n128, omega, constants)
+    small = DirectSolver(eps_s, mu_s, dx, dx, omega, device=dev)
+    xs64, _ = small.solve(src_s, rhs_scale=1.0, refine_target=1e-10, return_split=True)
+    coeffs = [c.numpy().ravel() for c in five_point_coefficients(
+        make_operator(eps_s, mu_s, dx, dx, omega, dtype=torch.complex128))]
+    d_, e_, w_, s2, n2 = coeffs
+    off = 2 * n128
+    A = sp.diags([d_, e_[:-2], w_[2:], s2[:-off], n2[off:]], [0, 2, -2, off, -off], format="csc")
+    x_sp = spla.spsolve(A, src_s.ravel()).reshape(n128, n128)
+    err_sp = complex_rel_err(xs64.cpu(), torch.tensor(x_sp))
+    if not err_sp <= TOL:
+        raise AssertionError(f"128^2 direct vs spsolve: relative error {err_sp:.3e} > {TOL}")
+    out["fdfd512"] = {"inv_startup_s": inv_startup_s, "factor_s": factor_s,
+                      "first_solve_s": first_s, "warm_solve_s": solve_s,
+                      "warm_solve_split_s": split_s, "trace": trace, "trace_first": trace_first,
+                      "cpu_c128_residual": res_cpu, "factor_growth": solver.factor_growth,
+                      "peak_gb": peak, "spsolve_128_rel_err": err_sp}
+    done(t0, f"factor {factor_s:.3f} s (first inv {inv_startup_s:.3f} s), warm solve "
+             f"{solve_s:.4f} s, trace {[f'{t:.2e}' for t in trace]}, CPU c128 residual "
+             f"{res_cpu:.3e}, 128^2 vs spsolve {err_sp:.3e}, peak {peak:.3f} GB")
+
+    # -- 13 needs phase 11's solver: the checkpointed mode at 512^2 --------------------
+    t0 = phase("13. checkpointed DirectSolver at 512^2, stride 32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ckpt, ck_factor_s = timed(lambda: DirectSolver(eps, mu, dx, dx, omega, checkpointed=True,
+                                                   stride=32, device=dev), dev)
+    unit = torch.tensor(rng.standard_normal((N, N)) + 1j * rng.standard_normal((N, N)),
+                        dtype=torch.complex64, device=dev)
+    unit = unit / torch.linalg.vector_norm(unit)
+    raw_err = complex_rel_err(ckpt._solve(unit), solver._solve(unit))
+    if not raw_err <= TOL:
+        raise AssertionError(f"checkpointed raw backsolve vs stored factors: {raw_err:.3e}")
+    ckpt.solve(src, **kw)
+    (_, ck_trace), ck_solve_s = timed(lambda: ckpt.solve(src, **kw), dev)
+    if not ck_trace[-2] <= 1e-6:
+        raise AssertionError(f"checkpointed refined residual: {ck_trace}")
+    out["ckpt512"] = {"stride": 32, "factor_s": ck_factor_s, "warm_solve_s": ck_solve_s,
+                      "raw_backsolve_rel_err": raw_err, "trace": ck_trace,
+                      "peak_gb": peak_gb(dev)}
+    del ckpt, solver, x512, x512_64, unit
+    torch.cuda.empty_cache()
+    done(t0, f"factor {ck_factor_s:.3f} s, warm solve {ck_solve_s:.4f} s, raw backsolve vs "
+             f"stored {raw_err:.3e}, trace {[f'{t:.2e}' for t in ck_trace]}")
+
+    # -- 12. direct1024 and direct1024batched -----------------------------------------
+    t0 = phase("12. direct1024 / direct1024batched: hard binary scene at 1024^2")
+    N2, B = 1024, 16
+    eps2, mu2, src2 = hard_binary_scene(N2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    solver2, factor2_s = timed(lambda: DirectSolver(eps2, mu2, dx, dx, omega, device=dev), dev)
+    factor_peak = peak_gb(dev)
+    solver2.solve(src2, refine_target=1e-6)
+    (_, trace2), solve2_s = timed(lambda: solver2.solve(src2, refine_target=1e-6), dev)
+    if not trace2[-2] < 1e-5:
+        raise AssertionError(f"direct 1024^2 solve did not converge: {trace2}")
+    rng0 = np.random.default_rng(0)
+    ij = rng0.integers(N2 // 4, 3 * N2 // 4, size=(B, 2))
+    srcs = np.zeros((B, N2, N2))
+    srcs[np.arange(B), ij[:, 0], ij[:, 1]] = 1.0
+    solver2.solve_batched(srcs, refine_target=1e-6)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (xb, per_sample, trace_b), batched_s = timed(
+        lambda: solver2.solve_batched(srcs, refine_target=1e-6), dev)
+    batched_peak = peak_gb(dev)
+    worst = float(per_sample.max())
+    if not worst < 1e-5:
+        raise AssertionError(f"batched direct solve did not converge: {worst}")
+    singles = []
+    for i in range(B):
+        xi, _ = solver2.solve(srcs[i], refine_target=1e-6)
+        singles.append(norm_rel(xb[i], xi))
+    if not max(singles) <= TOL:
+        raise AssertionError(f"batched vs single solves: {max(singles):.3e} > {TOL}")
+    out["direct1024"] = {"factor_s": factor2_s, "warm_solve_s": solve2_s, "trace": trace2,
+                         "factor_growth": solver2.factor_growth,
+                         "factor_peak_gb": factor_peak}
+    out["direct1024batched"] = {"sources": B, "warm_s": batched_s,
+                                "warm_per_source_s": batched_s / B, "trace": trace_b,
+                                "worst_residual": worst,
+                                "batched_vs_single_rel_err": max(singles),
+                                "peak_gb": batched_peak}
+    del solver2, xb
+    torch.cuda.empty_cache()
+    done(t0, f"factor {factor2_s:.3f} s (peak {factor_peak:.3f} GB), warm solve {solve2_s:.4f} s "
+             f"{[f'{t:.2e}' for t in trace2]}; batched {B}: {batched_s / B:.4f} s a source, "
+             f"worst {worst:.3e}, vs singles {max(singles):.3e}, peak {batched_peak:.3f} GB")
+
+    # -- 14. fdfd512iter --------------------------------------------------------------
+    t0 = phase("14. fdfd512iter: FDM-FGMRES at 512^2, restart 20")
+    torch.cuda.reset_peak_memory_stats(dev)
+    b32 = torch.tensor(src, dtype=torch.complex64, device=dev)
+    M, _ = resolve_preconditioner(op32, "fdm")
+    kwi = dict(preconditioner=M, tol=1e-6, maxiter=3000, restart=20)
+    solve_fdfd(op32, b32, **kwi)
+    res_it, iter_s = timed(lambda: solve_fdfd(op32, b32, **kwi), dev)
+    if not res_it.relative_residual < 1e-4:
+        raise AssertionError(f"fdfd512iter residual {res_it.relative_residual}")
+    it_cpu = cpu_residual(op128_cpu, b512, res_it.x)
+    out["fdfd512iter"] = {"warm_solve_s": iter_s, "relative_residual": res_it.relative_residual,
+                          "cpu_c128_residual": it_cpu, "iterations": res_it.iterations,
+                          "converged": res_it.converged, "peak_gb": peak_gb(dev)}
+    done(t0, f"warm solve {iter_s:.4f} s, {res_it.iterations} iterations, residual "
+             f"{res_it.relative_residual:.3e} (c128 on the CPU {it_cpu:.3e})")
+
+    # -- 15. the CLI --------------------------------------------------------------------
+    t0 = phase("15. CLI: fdtd2d_tpu_torch.cli fdfd --size 512 --device cuda --out ''")
+    tol = 1e-6
+    cli = {}
+    for solver_name in ("direct", "krylov"):
+        cmd = [sys.executable, "-m", "fdtd2d_tpu_torch.cli", "fdfd", "--size", "512",
+               "--solver", solver_name, "--tol", str(tol), "--device", "cuda", "--out", ""]
+        t_cli = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t_cli
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI {solver_name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        m = re.search(r"^relative residual: (\S+)(?: \(f64 iterate: (\S+)\))?$",
+                      proc.stdout, re.M)
+        if m is None:
+            raise AssertionError(f"CLI {solver_name} printed no residual: {proc.stdout!r}")
+        first = float(m.group(1))
+        if solver_name == "direct":
+            iterate = float(m.group(2))
+            if not iterate <= tol:
+                raise AssertionError(f"CLI direct: f64-iterate residual {iterate} > {tol}")
+            cli[solver_name] = {"residual": first, "f64_iterate_residual": iterate}
+        else:
+            if not first < 10 * tol:
+                raise AssertionError(f"CLI krylov: residual {first} >= {10 * tol}")
+            cli[solver_name] = {"residual": first}
+        cli[solver_name]["process_s"] = seconds
+        print(f"   {solver_name}: {proc.stdout.strip()} ({seconds:.1f} s)")
+    out["cli"] = cli
+    done(t0)
+    return out
 
 
 def main() -> int:
@@ -493,6 +768,13 @@ def main() -> int:
         del ce_t, ch_t
         torch.cuda.empty_cache()
     done(t0)
+    # free the FDTD fields before the FDFD phases read peak device memory
+    for d in big.values():
+        del d["fields"]
+    del fields_t, Ez, Hx, Hy, kern, plain, k3_out, ce2, ch2, coef2, eps_d, mu_d
+    torch.cuda.empty_cache()
+
+    fdfd = fdfd_phases(dev)
 
     print(json.dumps({"kernels": [{
         "name": "fdtd_fused (K1)", "route": "cuda",
@@ -532,6 +814,8 @@ def main() -> int:
                       for n_b, d in big.items()},
         "k3_2048_200": {"rel_err": k3_errs, "abs_err": k3_abs},
     }}))
+    print(json.dumps({"fdfd": {"card": info["name"], "power_limit": info["power_limit"],
+                               **fdfd}}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

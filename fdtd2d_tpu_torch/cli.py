@@ -1,10 +1,12 @@
-"""Command-line entry point of the port (the ``fdtd`` subcommand so far):
+"""Command-line entry point of the port (the ``fdtd`` and ``fdfd``
+subcommands so far):
 
     python -m fdtd2d_tpu_torch.cli fdtd --size 2048 --steps 2000 --device cuda
     fdtd2d-torch fdtd --size 200 --steps 1000 [--structure img.png] [--video out.mp4]
+    fdtd2d-torch fdfd --size 512 --omega 17e9 --solver direct --device cuda [--out Ez.png]
 
-Flags and printed lines are those of ``fdtd2d fdtd`` (fdtd2d_tpu/cli.py),
-plus ``--device``.
+Flags and printed lines are those of ``fdtd2d fdtd`` and ``fdtd2d fdfd``
+(fdtd2d_tpu/cli.py), plus ``--device``. ``--out ""`` skips the plot.
 """
 
 from __future__ import annotations
@@ -35,6 +37,39 @@ def cmd_fdtd(args):
         print(f"wrote {out}")
 
 
+def cmd_fdfd(args):
+    from fdtd2d_tpu_torch.core.grid import Scene
+    from fdtd2d_tpu_torch.core.guards import check_resolution
+
+    scene = Scene.from_image(args.structure, args.size, args.size, dx=args.dx,
+                             black_point=3.0, device=args.device)
+    check_resolution(scene.eps.cpu().numpy(), scene.mu.cpu().numpy(), args.omega, scene.dx)
+    source = scene.point_source(args.size // 5, args.size // 5)
+    if args.solver == "direct":
+        from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+
+        solver = DirectSolver(scene.eps, scene.mu, scene.dx, scene.dx, args.omega,
+                              device=args.device)
+        x, trace = solver.solve(source, rhs_scale=args.omega, refine_target=args.tol)
+        print(f"relative residual: {trace[-1]:.3e} "
+              f"(f64 iterate: {trace[-2]:.3e})")
+    else:
+        from fdtd2d_tpu_torch.fdfd.solver import run_fdfd
+
+        res = run_fdfd(scene.eps, scene.mu, scene.dx, scene.dx, args.omega, source,
+                       rhs_scale=args.omega,  # reference convention (fdfd.py:112)
+                       tol=args.tol, maxiter=args.maxiter, device=args.device)
+        x = res.x
+        print(f"relative residual: {res.relative_residual:.3e}")
+    if args.out:
+        from fdtd2d_tpu_torch.viz.render import plot_Ez
+
+        Ez = x.real.cpu().numpy()
+        m = float(abs(Ez).max()) or 1.0
+        plot_Ez(Ez, scene.eps.cpu().numpy(), args.out, vmax=m, vmin=-m)
+        print(f"wrote {args.out}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fdtd2d-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -54,6 +89,24 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--device", type=str, default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu")
     f.set_defaults(fn=cmd_fdtd)
+
+    f = sub.add_parser("fdfd", help="steady-state solve")
+    f.add_argument("--size", type=int, default=512)
+    f.add_argument("--omega", type=float, default=17e9)
+    f.add_argument("--dx", type=float, default=1e-3)
+    f.add_argument("--tol", type=float, default=1e-6)
+    f.add_argument("--maxiter", type=int, default=1000)
+    f.add_argument("--solver", type=str, default="krylov",
+                   choices=["krylov", "direct"],
+                   help="krylov: FDM-FGMRES (scales past the direct "
+                        "solver's memory); direct: exact sublattice "
+                        "block-Thomas factorization (any contrast)")
+    f.add_argument("--structure", type=str, default=None)
+    f.add_argument("--out", type=str, default="Ez.png",
+                   help='plot of Re(Ez); "" skips it')
+    f.add_argument("--device", type=str, default="cuda",
+                   help="torch device, e.g. cuda, cuda:1 or cpu")
+    f.set_defaults(fn=cmd_fdfd)
     return p
 
 

@@ -1,5 +1,5 @@
 """K1, K2 and K3 mode on the card: the CUDA kernels against their plain
-versions.
+versions; and the FDFD solvers on the card against complex128 on the CPU.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -208,3 +208,46 @@ def test_tiled_kernel_raises_on_float64(dev):
         fdtd_blocked.fdtd_multistep_blocked(Ez, Hx, Hy, ce, ch, 0.5, DT, FC, 16, 16, 5,
                                             "ricker", 0)
     assert (fdtd_ttiled.launches, fdtd_blocked.launches) == before
+
+
+def test_direct_solver_on_card_matches_cpu_complex128(dev):
+    """DirectSolver at 256^2 on the card (complex64 factors, complex128
+    refinement, everything on the card) against the complex128 direct solve
+    on the CPU."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver, solve_direct
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    N, dx, omega = 256, 1e-3, 17e9
+    eps, mu, src = hard_binary_scene(N)
+    solver = DirectSolver(eps, mu, dx, dx, omega, device=dev)
+    assert solver.factors.stacked.Ws.is_cuda and solver.op64.eps.is_cuda
+    x, trace = solver.solve(src, refine_target=1e-9)
+    assert x.is_cuda and x.dtype == torch.complex64
+    assert trace[-2] <= 1e-9 and trace[-1] < 5e-5
+    op = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex128)
+    want = solve_direct(op, torch.as_tensor(-1j * omega * src))
+    assert float((x.cpu().to(torch.complex128) - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_fgmres_on_card_matches_cpu_complex128(dev):
+    """FDM-FGMRES in complex64 at 128^2 on the card: converged within
+    maxiter, and the field against the complex128 direct solve on the CPU.
+    (tol 1e-5: complex64 FGMRES floors near 1.5e-6 on this scene.)"""
+    from fdtd2d_tpu_torch.fdfd.direct import solve_direct
+    from fdtd2d_tpu_torch.fdfd.solver import solve_fdfd
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    N, dx, omega = 128, 1e-3, 17e9
+    rng = np.random.default_rng(7)
+    eps = constants.EPSILON_0 * (1.0 + 2.0 * rng.random((N, N)))
+    mu = np.full((N, N), constants.MU_0)
+    b = np.zeros((N, N), np.complex128)
+    b[N // 2, N // 2] = -1j * omega * 10.0
+    op = make_operator(eps, mu, dx, dx, omega, pml_thickness=20, device=dev)
+    res = solve_fdfd(op, torch.tensor(b, device=dev), tol=1e-5, maxiter=400, restart=20)
+    assert res.x.is_cuda and res.relative_residual <= 1e-5 and res.iterations < 400
+    want = solve_direct(make_operator(eps, mu, dx, dx, omega, pml_thickness=20,
+                                      dtype=torch.complex128), torch.as_tensor(b))
+    assert float((res.x.cpu().to(torch.complex128) - want).abs().max()
+                 / want.abs().max()) <= 1e-4

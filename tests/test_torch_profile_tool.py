@@ -62,3 +62,36 @@ def test_backends_option():
     assert profile_fdtd.parse_args([]).backends == ["fused", "torch"]
     with pytest.raises(SystemExit):
         profile_fdtd.parse_args(["--backends", "pallas"])
+
+
+_spec_fdfd = importlib.util.spec_from_file_location(
+    "profile_fdfd", Path(__file__).resolve().parents[1] / "tools" / "profile_fdfd.py")
+profile_fdfd = importlib.util.module_from_spec(_spec_fdfd)
+_spec_fdfd.loader.exec_module(profile_fdfd)
+
+
+def test_fdfd_window_summary_counts_launches(tmp_path, monkeypatch):
+    """tools/profile_fdfd.py: one solve is one "step"; launches count every
+    device kernel, and only the top kernels are kept."""
+    monkeypatch.setattr(profile_fdfd, "TOP", 2)
+    events = [{"cat": "kernel", "name": name, "ts": 10.0 * i, "dur": dur}
+              for i, (name, dur) in enumerate([("gemv", 4.0), ("gemv", 4.0), ("add", 1.0),
+                                                ("inv", 9.0), ("add", 1.0)])]
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": events}))
+    s = profile_fdfd.window_summary(trace, wall_s=1e-4)
+    assert s["launches"] == 5 and s["launches_per_ms"] == pytest.approx(50.0)
+    assert s["kernel_names"] == 3 and list(s["kernels"]) == ["inv", "gemv"]
+    assert s["kernels"]["gemv"] == {"calls": 2, "total_us": 8.0, "us_per_call": 4.0}
+    assert s["busy_share"] == pytest.approx(0.19)
+
+
+def test_fdfd_paths_option_and_no_card(monkeypatch, capsys):
+    args = profile_fdfd.parse_args(["--size", "1024", "--paths", "fgmres"])
+    assert args.size == 1024 and args.paths == ["fgmres"]
+    assert profile_fdfd.parse_args([]).paths == ["factor", "direct", "fgmres"]
+    with pytest.raises(SystemExit):
+        profile_fdfd.parse_args(["--paths", "gmres"])
+    monkeypatch.setattr(profile_fdfd.torch.cuda, "is_available", lambda: False)
+    assert profile_fdfd.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

@@ -120,7 +120,11 @@ def test_port_imports_no_jax():
     code = ("import sys, fdtd2d_tpu_torch, fdtd2d_tpu_torch.fdtd, fdtd2d_tpu_torch.cli, "
             "fdtd2d_tpu_torch.core, fdtd2d_tpu_torch.ops.fdtd_fused, "
             "fdtd2d_tpu_torch.ops.fdtd_ttiled, fdtd2d_tpu_torch.ops.fdtd_blocked, "
-            "fdtd2d_tpu_torch.utils, fdtd2d_tpu_torch.viz\n"
+            "fdtd2d_tpu_torch.utils, fdtd2d_tpu_torch.viz, fdtd2d_tpu_torch.fdfd, "
+            "fdtd2d_tpu_torch.fdfd.direct, fdtd2d_tpu_torch.fdfd.refine, "
+            "fdtd2d_tpu_torch.fdfd.solver, fdtd2d_tpu_torch.ops.helmholtz, "
+            "fdtd2d_tpu_torch.ops.dst, fdtd2d_tpu_torch.ops.fdm, "
+            "fdtd2d_tpu_torch.ops.krylov, fdtd2d_tpu_torch.core.scenes\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'fdtd2d_tpu'))\n"
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
