@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    card's name and power limit as nvidia-smi reports them.
 2. Build: compiles K1 and K2 from fdtd2d_tpu_torch/ops/csrc/ with nvcc (one
    nvcc per source, in parallel) and prints ptxas' registers and spills per
-   kernel, and K2's dynamic shared memory per block at the 4096^2 plan
-   (ptxas reports static shared memory only).
+   kernel. The phase fails unless build.log holds ttiled_sweep's report
+   with no spill and the static shared memory the planner budgets
+   (fdtd_ttiled.STATIC_SMEM_BYTES). Then K2's dynamic shared memory per
+   block at the 4096^2 plan (ptxas reports static shared memory only).
 3. Kernel vs plain version on an odd non-square grid (203x157) with a
    seeded random medium, Ricker and sinusoidal sources, each run once as one
    call and once as two chunks with a step offset:
@@ -41,16 +43,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    divide none of the step counts. Sources at the centre, in the halo overlap
    of four tiles (15, 21) and in corner tiles; zero states (300 steps) and
    random states (60 and 62 steps, band and corner coverage asserted as in
-   phase 3). The float32 kernel is held to the float64 plain step and to the
-   tile emulation (the same tiles) run in float64 on the kernel's float32
-   inputs, both within the tolerance, and to itself run in two chunks, bit
-   for bit: each cell's value at each step comes from the same expression on
-   the same inputs, whichever tile computes it. (A float32 emulation is no
+   phase 3). Then a 400x360 seeded medium and random state at the planner's
+   plan (60 steps, source at the centre): 15 of its 35 tiles are interior,
+   with full 80x96 windows and seams between them. Every random-state case
+   prints its count of interior tiles (those the kernel's register body
+   steps) and fails if it is 0. The float32 kernel is held to the float64
+   plain step and to the tile emulation (the same tiles) run in float64 on
+   the kernel's float32 inputs, both within the tolerance, and to itself run
+   in two chunks, bit for bit: each cell's value at each step comes from the
+   same expression on the same inputs, whichever tile or body computes it. (A float32 emulation is no
    yardstick at 1e-5: on the zero-state sinusoidal case with the source at
    (15, 21) the float32 plain arithmetic is itself 7.2e-06 from float64 in
    Hy, and the kernel's FMA rounding differs from it in the other direction.)
 7. K3 mode (K2 at K = 1, entry fdtd_multistep_blocked): the cases of phase 6
-   at K = 1.
+   at K = 1 (the 400x360 case at the planner's K = 1 tiles).
 8. The slice at full size: the 4096^2 bench scene (bench.py's fdtd4096 row:
    2048 steps, backend auto) through ``simulate(backend="auto")`` with 8
    frames: it must resolve to "ttiled", and the K2 counter must advance by
@@ -59,11 +65,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    8192^2 scene (fdtd8192: 512 steps, backend ttiled) once with the same
    checks, and 50 steps against float64. K3 through its entry point on the
    2048^2 scene: 200 steps, its counter advancing by 200, against phase 4's
-   float64 run.
+   float64 run. Each prints its plan and count of interior tiles, which must
+   be above 0.
 9. Time: ms a step of K2, K1 and the plain float32 path at 4096^2 and
    8192^2, and of K2, K3 mode, K1 and plain at 2048^2, through the op-level
    entry points with the state on the card; CUDA events after a warm-up, in
-   turns (plain, K1, K2[, K3, K3], K2, K1, plain).
+   turns (plain, K1, K2[, K3, K3], K2, K1, plain). K2's and K3's ms a step
+   are printed beside their share of two bounds: the roofline (five inputs
+   read and three outputs written once, 11 float32 operations a cell a step
+   at 67 TFLOP/s, 3.35 TB/s) and the HBM traffic of the kernel's own plan.
 
 10. FDFD operator on the ``fdfd512`` scene (bench.py:126-134: 512^2, dx
     1e-3 m, omega 17e9, a 2.5x block, PML 40): the complex64 apply and
@@ -103,8 +113,11 @@ CUDA's expf differs from the plain path's exp in the last bits, both far
 inside that bound at float32.
 
 Before its last line the script prints one JSON object with each kernel's
-launches (counted in its main-path run of phase 4 or 8), error and times, one
-with the GCells/s of phase 5, one with the times and errors of phases 6-9,
+launches (counted in its main-path run of phase 4 or 8), error, times and
+roofline bound (K2 and K3 also their plan and share of the bound; no single
+PyTorch call computes a leapfrog step, so library_ms is null), one
+with the GCells/s of phase 5, one with the times, errors, plan-traffic
+bounds and tile counts of phases 6-9,
 one with the times, residuals and peak memory of phases 10-15, and the
 nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -114,6 +127,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -126,6 +140,35 @@ TOL = 1e-5
 COVER = 1e-3  # least field in each Mur band and corner, relative to max |Ez|
 DT, DX, FC = 5e-14, 1e-4, 30e9
 Z0 = 376.73   # vacuum impedance: scales the random H to the random Ez
+# Roofline of a leapfrog step on an H100 SXM at its 700 W limit (NVIDIA's
+# data sheet): 3.35 TB/s of HBM, 67 TFLOP/s of float32 outside the tensor
+# cores; 11 float32 operations a cell a step (H: 2 x (sub, mul, add); Ez:
+# 3 subs, a mul, an add).
+HBM_BYTES_S, F32_FLOPS, FLOPS_PER_CELL_STEP = 3.35e12, 67e12, 11
+
+
+def roofline_ms(N: int, steps: int):
+    """(ms a step, "bytes" or "operations"): the least time a call of
+    ``steps`` steps on an N x N grid takes, its five inputs read once and its
+    three outputs written once (32 B a cell), its operations at the float32
+    peak; per step."""
+    by_bytes = 32 * N * N / HBM_BYTES_S
+    by_ops = FLOPS_PER_CELL_STEP * N * N * steps / F32_FLOPS
+    return max(by_bytes, by_ops) / steps * 1e3, ("bytes" if by_bytes > by_ops else "operations")
+
+
+def plan_bound_ms(fdtd_ttiled, N: int, K: int, TH: int, TW: int) -> float:
+    """ms a step of K2's (or K3's, K = 1) own HBM traffic at 3.35 TB/s: each
+    sweep reads five fields over every window and writes three over the
+    owned cells, (5 (1 + redundancy) + 3) x 4 B a cell per K steps."""
+    per_cell = (5 * (1 + fdtd_ttiled.redundancy(N, N, K, TH, TW)) + 3) * 4 / K
+    return per_cell * N * N / HBM_BYTES_S * 1e3
+
+
+def roofline_entry(bounds: dict) -> dict:
+    """The keys of phase 9's bounds of K2 or K3 that the ``kernels`` line
+    carries; the plan-traffic bound stays in the ``ttiled`` line."""
+    return {k: bounds[k] for k in ("plan", "bound_ms", "bound_by", "share_of_bound")}
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -177,16 +220,25 @@ def against_plain(kern, plain, what: str):
     return errs, max(max_abs_err(k, p) for k, p in zip(kern, plain))
 
 
-def tiled_edge_cases(kernel, emulate, plain, states, cases, band):
+def tiled_edge_cases(kernel, emulate, plain, states, cases, band, interior):
     """Phases 6 and 7: ``kernel``/``emulate``/``plain`` run
-    (fields, nsteps, offset, source, kind, K, tile) -> fields. Returns the
-    worst relative error (against the float64 plain step and against the
-    emulation) and the least band/corner coverage of the random states."""
-    worst, least_cover = 0.0, 1.0
+    (fields, nsteps, offset, source, kind, K, tile) -> fields; ``interior``
+    (K, tile) counts the tiles that the kernel's register body steps. Returns
+    the worst relative error (against the float64 plain step and against the
+    emulation), the least band/corner coverage of the random states, and the
+    least count of interior tiles over the random-state cases, which must
+    be above 0."""
+    worst, least_cover, least_interior = 0.0, 1.0, None
     for K, tile, start, nsteps, split, sources in cases:
+        n_interior = interior(K, tile)
+        if start.startswith("random"):
+            least_interior = n_interior if least_interior is None else min(least_interior,
+                                                                           n_interior)
+            if not n_interior > 0:
+                raise AssertionError(f"K={K}, tiles {tile}: no interior tile")
         for (sx, sy), kind_ in ((s, k) for s in sources for k in ("ricker", "sinusoidal")):
-            case = (f"K={K}, tiles {tile}, {start} state, {nsteps} steps, "
-                    f"source {(sx, sy)}, {kind_}")
+            case = (f"K={K}, tiles {tile} ({n_interior} interior), {start} state, "
+                    f"{nsteps} steps, source {(sx, sy)}, {kind_}")
             args = ((sx, sy), kind_, K, tile)
             single = kernel(states[start], nsteps, 0, *args)
             chunked = kernel(kernel(states[start], split, 0, *args), nsteps - split,
@@ -194,7 +246,7 @@ def tiled_edge_cases(kernel, emulate, plain, states, cases, band):
             emu = emulate(states[start], nsteps, 0, *args)
             ref = plain(states[start], nsteps, 0, *args)
             torch.cuda.synchronize()
-            if start == "random":
+            if start.startswith("random"):
                 cover = boundary_cover(ref[0], band)
                 least_cover = min(least_cover, cover)
                 if not cover >= COVER:
@@ -215,7 +267,7 @@ def tiled_edge_cases(kernel, emulate, plain, states, cases, band):
             worst = max(worst, *case_worst.values())
             print(f"   {case}: ok, relative error " +
                   ", ".join(f"{v:.3e} vs the {k}" for k, v in case_worst.items()))
-    return worst, least_cover
+    return worst, least_cover, least_interior
 
 
 def time_in_turns(order, runs, cells: int, steps: int):
@@ -283,7 +335,6 @@ def peak_gb(dev) -> float:
 def fdfd_phases(dev) -> dict:
     """Phases 10-15: the FDFD path on the card. Returns the numbers of the
     ``{"fdfd": ...}`` line."""
-    import re
     import subprocess
 
     import scipy.sparse as sp
@@ -513,19 +564,37 @@ def main() -> int:
         lib_path = _build.build()
         _build.load()
     log = (lib_path.parent / "build.log")
-    kernel_name = "?"
-    for line in log.read_text().splitlines() if log.exists() else []:
+    if not log.exists():
+        raise AssertionError(f"no ptxas report beside the library: {log} is missing")
+    kernel_name, ttiled_smem, ttiled_spills = "?", None, 0
+    for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             kernel_name = next((k for k in ("h_update_and_save_strips", "e_interior_update",
                                             "boundary_update", "ttiled_sweep") if k in line),
                                line.strip())
         elif "registers" in line or "spill" in line:
             print(f"   ptxas {kernel_name}: {line.strip()}")
+            if kernel_name != "ttiled_sweep":
+                continue
+            if "spill" in line:
+                ttiled_spills += 1
+                if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    raise AssertionError(f"ptxas spills in ttiled_sweep: {line.strip()}")
+            if "registers" in line:
+                m = re.search(r"(\d+) bytes smem", line)
+                ttiled_smem = int(m.group(1)) if m else 0
+    if ttiled_spills == 0 or ttiled_smem is None:
+        raise AssertionError(f"{log} holds no register and spill report of ttiled_sweep")
+    if ttiled_smem != fdtd_ttiled.STATIC_SMEM_BYTES:
+        raise AssertionError(f"ptxas reports {ttiled_smem} B of static shared memory in "
+                             f"ttiled_sweep; the planner budgets "
+                             f"{fdtd_ttiled.STATIC_SMEM_BYTES} B (STATIC_SMEM_BYTES)")
     K, TH, TW = fdtd_ttiled.pick_sweep_depth(4096, 4096)
     smem = fdtd_ttiled.smem_bytes(fdtd_ttiled.window_extent(4096, TH, K),
                                   fdtd_ttiled.window_extent(4096, TW, K))
     print(f"   ttiled_sweep at 4096^2 (K={K}, {TH}x{TW} tiles): {smem} B of dynamic "
-          f"shared memory a block ({fdtd_ttiled.SMEM_BUDGET} B fit two blocks an SM)")
+          f"shared memory a block, {fdtd_ttiled.STATIC_SMEM_BYTES} B static "
+          f"(one 480-thread block an SM; budget {fdtd_ttiled.SMEM_BUDGET} B dynamic)")
     done(t0, f"built {lib_path.relative_to(ROOT)} in {build_timer.seconds:.2f} s")
 
     # -- 3. kernel vs plain version, edge cases --------------------------------
@@ -640,44 +709,75 @@ def main() -> int:
         return n * n / (gcells * 1e9) * 1e3
 
     # -- 6. K2 vs its plain versions, edge cases ---------------------------------
-    t0 = phase("6. K2 vs the float64 plain step and tile emulation, 203x157")
+    t0 = phase("6. K2 vs the float64 plain step and tile emulation, 203x157 and 400x360")
+    # A 400x360 grid at the planner's plan: 15 of its 35 tiles are interior,
+    # with full 80 x 96 windows and seams between them, the shape the
+    # register body runs at 2048^2 and up; its own seeded medium and state.
+    r4, c4 = 400, 360
+    rng4 = np.random.default_rng(4)
+    eps4 = constants.EPSILON_0 * (1.0 + 3.0 * rng4.random((r4, c4)))
+    c32 = precompute_coefficients(torch.tensor(eps4, device=dev),
+                                  torch.tensor(np.full((r4, c4), constants.MU_0), device=dev),
+                                  DT, DX, torch.float32)
+    media = {(rows, cols): coeffs,
+             (r4, c4): {torch.float32: c32, torch.float64: tuple(c.double() for c in c32)}}
+    states["random400"] = tuple(torch.tensor(rng4.standard_normal(shape), device=dev,
+                                             dtype=torch.float32) / scale
+                                for shape, scale in (((r4, c4), 1.0), ((r4, c4 - 1), Z0),
+                                                     ((r4 - 1, c4), Z0)))
 
     def tiled_runner(fn, dtype):
         def run(fields, n, offset, src, kind_, K, tile):
-            ce, ch, coef = coeffs[dtype]
+            ce, ch, coef = media[tuple(fields[0].shape)][dtype]
             fields = tuple(f.to(dtype) for f in fields)
             return fn(*fields, ce, ch, coef, DT, FC, *src, n, kind_, offset, K=K, tile=tile)
         return run
 
     def plain_runner(fields, n, offset, src, kind_, K, tile):
-        ce, ch, coef = coeffs[torch.float64]
+        ce, ch, coef = media[tuple(fields[0].shape)][torch.float64]
         return fdtd_fused.fdtd_multistep_fused_reference(
             *(f.double() for f in fields), ce, ch, coef, DT, FC, *src, n, kind_, offset)
+
+    def interior_of(start):
+        shape = tuple(states[start][0].shape)
+        return lambda K, tile: fdtd_ttiled.interior_tiles(
+            *shape, *fdtd_ttiled.resolve_plan(*shape, K, tile))
 
     emulate = tiled_runner(fdtd_ttiled.fdtd_multistep_ttiled_reference, torch.float64)
     k2_cases = ((7, (7, 10), "zero", 300, 137, ((rows // 2, cols // 2), (15, 21), (3, 4))),
                 (7, (7, 10), "random", 60, 27, ((rows - 3, cols - 2),)),
-                (3, (13, 16), "random", 62, 29, ((2, 3),)))
-    k2_worst, k2_cover = tiled_edge_cases(
-        tiled_runner(fdtd_ttiled.fdtd_multistep_ttiled, torch.float32), emulate,
-        plain_runner, states, k2_cases, MUR_BAND)
+                (3, (13, 16), "random", 62, 29, ((2, 3),)),
+                (None, None, "random400", 60, 27, ((r4 // 2, c4 // 2),)))
+
+    def tiled_cases(kernel, cases):
+        """tiled_edge_cases over cases on two grids; the worst error, least
+        cover and least count of interior tiles of all."""
+        results = [tiled_edge_cases(kernel, emulate, plain_runner, states, (case,), MUR_BAND,
+                                    interior_of(case[2])) for case in cases]
+        return (max(r[0] for r in results), min(r[1] for r in results),
+                min(r[2] for r in results if r[2] is not None))
+
+    k2_worst, k2_cover, k2_interior = tiled_cases(
+        tiled_runner(fdtd_ttiled.fdtd_multistep_ttiled, torch.float32), k2_cases)
     done(t0, f"worst relative error {k2_worst:.3e} <= {TOL}; chunked == single; "
-             f"random state: each band and corner >= {k2_cover:.3e} of max |Ez|")
+             f"random state: each band and corner >= {k2_cover:.3e} of max |Ez|; "
+             f"interior tiles in every random case (least {k2_interior})")
 
     # -- 7. K3 mode vs its plain versions, edge cases ----------------------------
-    t0 = phase("7. K3 mode (K2 at K = 1) vs the float64 plain step and emulation, 203x157")
+    t0 = phase("7. K3 mode (K2 at K = 1) vs the float64 plain step and emulation, "
+               "203x157 and 400x360")
 
     def blocked_runner(fields, n, offset, src, kind_, K, tile):
-        ce, ch, coef = coeffs[torch.float32]
+        ce, ch, coef = media[tuple(fields[0].shape)][torch.float32]
         return fdtd_blocked.fdtd_multistep_blocked(*fields, ce, ch, coef, DT, FC, *src,
                                                    n, kind_, offset, tile=tile)
 
     k3_cases = tuple((1, tile, start, n, split, srcs)
                      for _, tile, start, n, split, srcs in k2_cases)
-    k3_worst, k3_cover = tiled_edge_cases(blocked_runner, emulate, plain_runner, states,
-                                          k3_cases, MUR_BAND)
+    k3_worst, k3_cover, k3_interior = tiled_cases(blocked_runner, k3_cases)
     done(t0, f"worst relative error {k3_worst:.3e} <= {TOL}; chunked == single; "
-             f"random state: each band and corner >= {k3_cover:.3e} of max |Ez|")
+             f"random state: each band and corner >= {k3_cover:.3e} of max |Ez|; "
+             f"interior tiles in every random case (least {k3_interior})")
 
     # -- 8. the slice at full size: 4096^2 and 8192^2 on K2, K3 at 2048^2 ---------
     t0 = phase("8. simulate(backend='auto') on the 4096^2 bench scene; 8192^2; K3")
@@ -693,6 +793,9 @@ def main() -> int:
             raise AssertionError(f"backend {backend_big!r} resolved to {resolved!r} "
                                  f"at {n_big}^2, not 'ttiled'")
         K, TH, TW = fdtd_ttiled.pick_sweep_depth(n_big, n_big)
+        n_interior = fdtd_ttiled.interior_tiles(n_big, n_big, K, TH, TW)
+        if not n_interior > 0:
+            raise AssertionError(f"no interior tile at {n_big}^2")
         per_frame = nsteps_big // nframes_big if nframes_big else nsteps_big
         expected = (nsteps_big // per_frame) * -(-per_frame // K)
         fdtd_ttiled.launches = 0
@@ -714,9 +817,11 @@ def main() -> int:
         del kern_b, plain_b
         torch.cuda.empty_cache()
         big[n_big] = {"fields": fields_b, "eps": eps_b, "mu": mu_b, "sweeps": sweeps,
-                      "plan": [K, TH, TW], "rel_err": errs_b, "abs_err": abs_b,
-                      "parity_steps": parity_steps}
-        print(f"   {n_big}^2 {backend_big} -> ttiled, plan K={K} tiles {TH}x{TW}: "
+                      "plan": [K, TH, TW], "interior_tiles": n_interior,
+                      "tiles": len(fdtd_ttiled.tile_order(n_big, n_big, K, TH, TW)[0]),
+                      "rel_err": errs_b, "abs_err": abs_b, "parity_steps": parity_steps}
+        print(f"   {n_big}^2 {backend_big} -> ttiled, plan K={K} tiles {TH}x{TW} "
+              f"({n_interior} of {big[n_big]['tiles']} interior): "
               f"{sweeps} K2 launches for {nsteps_big} steps; {parity_steps} steps vs "
               f"float64: " + ", ".join(f"{k} {v:.3e}" for k, v in errs_b.items()))
     k2_main_launches = big[4096]["sweeps"]
@@ -732,7 +837,12 @@ def main() -> int:
     if k3_main_launches != 200:
         raise AssertionError(f"K3 launch counter advanced by {k3_main_launches}, expected 200")
     k3_errs, k3_abs = against_plain(k3_out, plain, "K3 2048^2 200-step")
-    done(t0, f"K3 at 2048^2: {k3_main_launches} launches, 200 steps vs float64: " +
+    k3_plan = fdtd_ttiled.resolve_plan(N, N, 1)
+    k3_interior = fdtd_ttiled.interior_tiles(N, N, *k3_plan)
+    if not k3_interior > 0:
+        raise AssertionError("no interior tile for K3 mode at 2048^2")
+    done(t0, f"K3 at 2048^2 (tiles {k3_plan[1]}x{k3_plan[2]}, {k3_interior} interior): "
+             f"{k3_main_launches} launches, 200 steps vs float64: " +
              ", ".join(f"{k} {v:.3e}" for k, v in k3_errs.items()))
 
     # -- 9. time: K2, K1, plain (and K3) ------------------------------------------
@@ -765,6 +875,27 @@ def main() -> int:
         print(f"   {n_t}^2, {steps_t} steps a run: " + "; ".join(
             f"{name} {times[n_t]['ms_per_step'][name]:.5f} ms ({', '.join(f'{g:.3f}' for g in v)}"
             f" GCells/s)" for name, v in timed_t.items()))
+        # K2's (and K3's) share of its bounds: the roofline (inputs read and
+        # outputs written once, 11 operations a cell a step) and its plan's
+        # own HBM traffic
+        bounds = {}
+        for name, K_t in (("K2", None), ("K3", 1)):
+            if name not in timed_t:
+                continue
+            plan_t = fdtd_ttiled.resolve_plan(n_t, n_t, K_t)
+            roof, roof_by = roofline_ms(n_t, steps_t)
+            ms_t = times[n_t]["ms_per_step"][name]
+            bounds[name] = {"plan": list(plan_t), "bound_ms": roof, "bound_by": roof_by,
+                            "share_of_bound": roof / ms_t,
+                            "plan_bound_ms": plan_bound_ms(fdtd_ttiled, n_t, *plan_t),
+                            "share_of_plan_bound":
+                                plan_bound_ms(fdtd_ttiled, n_t, *plan_t) / ms_t}
+            print(f"   {n_t}^2 {name} (K={plan_t[0]}, {plan_t[1]}x{plan_t[2]}): "
+                  f"{ms_t:.5f} ms a step, {bounds[name]['share_of_bound']:.3f} of its "
+                  f"{roof:.5f} ms roofline ({roof_by}), "
+                  f"{bounds[name]['share_of_plan_bound']:.3f} of its plan's "
+                  f"{bounds[name]['plan_bound_ms']:.5f} ms of HBM traffic")
+        times[n_t]["bounds"] = bounds
         del ce_t, ch_t
         torch.cuda.empty_cache()
     done(t0)
@@ -782,13 +913,17 @@ def main() -> int:
         "replaces": "fdtd2d_tpu/ops/pallas_fdtd.py:42",
         "launches": main_launches, "max_abs_err": abs_err,
         "ms": step_ms(kernel_gcells), "plain_ms": step_ms(plain_gcells),
-        "ms_unit": "per leapfrog step at 2048x2048, float32 (3 launches)",
+        "bound_ms": roofline_ms(N, steps)[0], "bound_by": roofline_ms(N, steps)[1],
+        "library_ms": None,
+        "ms_unit": "per leapfrog step at 2048x2048, float32 (3 launches); no single "
+                   "PyTorch call computes a leapfrog step",
     }, {
         "name": "fdtd_ttiled (K2)", "route": "cuda",
         "source": "fdtd2d_tpu_torch/ops/csrc/fdtd_ttiled.cu",
         "replaces": "fdtd2d_tpu/ops/pallas_fdtd_ttiled.py:70",
         "launches": k2_main_launches, "max_abs_err": big[4096]["abs_err"],
         "ms": times[4096]["ms_per_step"]["K2"], "plain_ms": times[4096]["ms_per_step"]["plain"],
+        **roofline_entry(times[4096]["bounds"]["K2"]), "library_ms": None,
         "ms_unit": "per leapfrog step at 4096x4096, float32 (one launch per sweep of K steps)",
     }, {
         "name": "fdtd_blocked (K3, K2 at K=1)", "route": "cuda",
@@ -796,9 +931,11 @@ def main() -> int:
         "replaces": "fdtd2d_tpu/ops/pallas_fdtd_blocked.py:80",
         "launches": k3_main_launches, "max_abs_err": k3_abs,
         "ms": times[2048]["ms_per_step"]["K3"], "plain_ms": times[2048]["ms_per_step"]["plain"],
+        **roofline_entry(times[2048]["bounds"]["K3"]), "library_ms": None,
         "ms_unit": "per leapfrog step at 2048x2048, float32 (one launch a step)",
     }]}))
     print(json.dumps({"fdtd2048": {
+        "k1_plan_bound_ms": 44 * N * N / HBM_BYTES_S * 1e3,
         "kernel_gcells": timed["fused"], "plain_torch_gcells": timed["torch"],
         "steps_per_run": steps, "order": ["plain", "kernel", "kernel", "plain"],
         "card": info["name"], "power_limit": info["power_limit"],
@@ -809,6 +946,7 @@ def main() -> int:
         "card": info["name"], "power_limit": info["power_limit"],
         "times": times, "k2_edge_case_worst_rel_err": k2_worst,
         "k3_edge_case_worst_rel_err": k3_worst,
+        "edge_case_least_interior_tiles": min(k2_interior, k3_interior),
         "edge_case_least_cover": min(k2_cover, k3_cover),
         "full_size": {n_b: {k: v for k, v in d.items() if k not in ("fields", "eps", "mu")}
                       for n_b, d in big.items()},

@@ -298,7 +298,7 @@ class DirectSolver:
     def __init__(self, eps, mu, dx, dy, omega, *, pml_thickness: int = 40,
                  sigma_max: float = 2.0, m: int = 3, dtype=torch.complex64,
                  checkpointed: bool = False, stride: int = 32,
-                 compressed: bool = False, hps: bool = False, device="cpu"):
+                 compressed: bool = False, hps: bool = False, device="cuda"):
         if compressed:
             raise NotImplementedError(f"DirectSolver(compressed=True) is {_LATER}")
         if hps:

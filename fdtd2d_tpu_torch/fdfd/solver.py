@@ -148,7 +148,7 @@ def solve_fdfd(
 def run_fdfd(eps, mu, dx, dy, omega, source, *, pml_thickness: int = 40,
              sigma_max: float = 2.0, m: int = 3, rhs_scale=None,
              dtype=torch.complex64, refine_target: float | None = None,
-             max_refine_rounds: int = 8, device="cpu", **solve_kwargs):
+             max_refine_rounds: int = 8, device="cuda", **solve_kwargs):
     """End-to-end steady-state solve from scene arrays.
 
     ``rhs_scale`` defaults to ``-1j*omega`` (the physical TE convention);

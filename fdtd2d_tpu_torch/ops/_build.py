@@ -103,11 +103,14 @@ def load() -> ctypes.CDLL:
                                        f, p]                  # coef stream
         lib.fdtd_fused_run.restype = i
         lib.fdtd_ttiled_run.argtypes = [p, p, p, p, p, p,     # ez hx hy: a, then b
-                                        p, p, p,              # ce ch amp
-                                        i, i, i, i, i, i,     # N M TH TW K nsteps
+                                        p, p, p, p, i, p,     # ce ch amp tiles n_tiles counters
+                                        i, i, i,              # N M ldg
+                                        i, i, i, i,           # TH TW K nsteps
                                         i, i, i, i,           # WH WW sx sy
                                         f, p]                 # coef stream
         lib.fdtd_ttiled_run.restype = i
+        lib.fdtd_ttiled_layout.argtypes = [i, i, ctypes.POINTER(i)]  # WH WW out[4]
+        lib.fdtd_ttiled_layout.restype = i
         lib.fdtd_error_string.argtypes = [i]
         lib.fdtd_error_string.restype = ctypes.c_char_p
         _lib = lib

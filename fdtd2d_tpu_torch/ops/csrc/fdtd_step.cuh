@@ -17,6 +17,23 @@ namespace fdtd {
 constexpr int kBand = 5;            // Mur band width (MUR_BAND)
 constexpr int kStrip = kBand + 1;   // pre-step Ez values a band cell chain reads
 
+// The three cell updates on values, for callers that keep the fields in
+// registers (fdtd_ttiled.cu's interior body). The memory forms below are
+// written with them, so every kernel computes each cell with one expression
+// and nvcc contracts it into the same FMAs: a cell's value does not depend
+// on which body or tile computed it. c is ch (H) or ce (Ez) at the cell.
+__device__ __forceinline__ float hx_next(float hx, float c, float e_down, float e) {
+  return hx - c * (e_down - e);
+}
+__device__ __forceinline__ float hy_next(float hy, float c, float e_right, float e) {
+  return hy + c * (e_right - e);
+}
+__device__ __forceinline__ float ez_next(float ez, float c, float hy, float hy_left,
+                                         float hx, float hx_up) {
+  const float curl = (hy - hy_left) - (hx - hx_up);
+  return ez + curl * c;
+}
+
 // H update of the cell at index k, which has a row below it and a column to
 // its right (domain 0 <= i < N-1, 0 <= j < M-1); c is ch at the cell.
 __device__ __forceinline__ void h_update(const float* __restrict__ ez, float c,
@@ -24,8 +41,8 @@ __device__ __forceinline__ void h_update(const float* __restrict__ ez, float c,
                                          float* __restrict__ hy, int k,
                                          int stride) {
   const float e00 = ez[k];
-  hx[k] = hx[k] - c * (ez[k + stride] - e00);
-  hy[k] = hy[k] + c * (ez[k + 1] - e00);
+  hx[k] = hx_next(hx[k], c, ez[k + stride], e00);
+  hy[k] = hy_next(hy[k], c, ez[k + 1], e00);
 }
 
 // Interior Ez update of the cell at index k, which has a row above it and a
@@ -34,8 +51,7 @@ __device__ __forceinline__ void e_interior(float* __restrict__ ez,
                                           const float* __restrict__ hx,
                                           const float* __restrict__ hy,
                                           float c, int k, int stride) {
-  const float curl = (hy[k] - hy[k - 1]) - (hx[k] - hx[k - stride]);
-  ez[k] = ez[k] + curl * c;
+  ez[k] = ez_next(ez[k], c, hy[k], hy[k - 1], hx[k], hx[k - stride]);
 }
 
 // One Mur band chain: e[0] is the edge cell and e[s*es], s = 1..5, step

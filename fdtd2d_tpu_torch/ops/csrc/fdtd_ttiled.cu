@@ -1,29 +1,61 @@
 // K2: temporally tiled TE leapfrog, `steps` <= K steps per pass over HBM,
-// on 2D tiles of the padded (N, M) float32 layout. Run with K = 1 it is K3.
+// on 2D tiles of the padded float32 fields. Run with K = 1 it is K3.
 //
 // Replaces the Pallas TPU kernels fdtd2d_tpu/ops/pallas_fdtd_ttiled.py::_kernel
 // (one pallas_call per sweep in _ttiled_sweep, looped by _ttiled_run) and,
 // as its K = 1 mode, fdtd2d_tpu/ops/pallas_fdtd_blocked.py::_kernel (one
 // step per pass, the halo H recomputed in the tile). The TPU kernel walks
-// full-width row panels; a 4096-wide panel of three fields does not fit the
+// full-width row panels; a 4096-wide panel of five fields does not fit the
 // 227 KB of shared memory a block may use here, so this kernel cuts 2D tiles.
 //
-// Scheme. One block per tile of TH x TW owned cells. The block loads its
-// window -- the owned cells plus a halo of K cells on each side, clipped at
-// the domain -- of Ez, Hx and Hy into shared memory, runs the steps there,
-// and writes its owned cells to three other buffers: a neighbour still reads
-// its halo from the inputs, so nothing is updated in place, and the host
-// swaps inputs and outputs between sweeps. ce and ch are not staged: each
-// step reads them through the read-only data path (__ldg), which leaves the
-// shared memory to the three fields and so allows larger windows.
+// Scheme. A tile owns TH x TW cells; its window adds a halo of K cells on
+// each side, clipped at the domain. A sweep steps every window K times and
+// keeps its owned cells, written to a second set of buffers (a neighbour
+// still reads its halo from the inputs); the host swaps the sets between
+// sweeps. Every array is (N, ldg) floats, ldg = M rounded up to 4, so that
+// every row starts on 16 bytes, as TMA needs.
 //
-// Each step runs the staging of fdtd_fused.cu on the window, with the cell
-// bodies of fdtd_step.cuh at the window's row stride and __syncthreads()
-// between stages: (1) save the pre-step Mur strips, with (2) the H update;
-// (3) interior Ez; (4) left/right bands; (5) top/bottom bands; (6) corners,
-// all reads before any store; (7) the source. Stages 4-7 are skipped, with
-// their barriers, by blocks whose window holds no band, corner or source
-// (the conditions are uniform over the block).
+// What bounds it. Once ce and ch are no longer re-read every step (stage 2
+// of the redesign), the step's arithmetic -- 11 float operations a cell --
+// is cheap; the costs are the instructions and barriers that move a cell's
+// neighbours around, and the window load and owned-cell store, which the
+// plan's HBM traffic bounds: (5 reads x window / owned + 3 writes) x 4 B /
+// K a cell a step, 5.25 B at the planner's 4096^2 shape (K = 8, 80 x 96
+// windows over 64 x 80 owned cells), 0.0263 ms a step at 3.35 TB/s. The
+// design, one stage at a time (PERF.md section 6 has each stage's time):
+//
+//   - A persistent grid, one 480-thread block an SM (registers allow one).
+//     A block takes tiles b and b + gridDim.x of the host's list, then
+//     claims more from a per-sweep counter, one ahead, so that blocks that
+//     drew slow tiles take fewer. The host lists the edge tiles first.
+//   - Interior tiles -- a window at least S = 6 cells inside the domain on
+//     every side, so no Mur band, corner or domain guard lies in it -- run
+//     a body with none of that work. The fields live in registers: warp
+//     (wx, wy) of 3 x 5 steps window column 32 wx + lane, rows 16 wy ..
+//     16 wy + 15, with their ce and ch read once a sweep. Vertical
+//     neighbours are the thread's own registers, horizontal ones come by
+//     __shfl_down/up_sync; only run ends and warp edges pass through a
+//     small exchange buffer, with two barriers a step. The window is at
+//     most 80 x 96 cells (ops/fdtd_ttiled.py::WINDOW).
+//   - Window loads overlap the stepping: once every thread has read its
+//     cells, one thread starts the TMA loads of the block's next interior
+//     window (five 80 x 100 boxes, cp.async.bulk.tensor.2d, completing on
+//     an mbarrier) into shared memory, and the current tile steps from
+//     registers and stores its owned cells while they land. A box must
+//     start on a 16-byte column: it starts at the window's first column
+//     rounded down to 4, and the window lies win0 % 4 floats into each row.
+//   - Edge tiles keep the staged body of the first version, with ce and ch
+//     now staged beside the fields (the last stage; re-reading them
+//     through __ldg each step cost 13% of the whole sweep at 4096^2): Ez,
+//     Hx, Hy, ce, ch in shared memory, per step (1) save the pre-step Mur
+//     strips, with (2) the H update; (3) interior Ez; (4) left/right bands;
+//     (5) top/bottom bands; (6) corners, all reads before any store; (7)
+//     the source, with __syncthreads() between stages. They are about 7% of
+//     the tiles at 4096^2.
+//
+// Both bodies compute each cell with the same expressions (fdtd_step.cuh),
+// so a cell's value does not depend on which tile or body computed it, and
+// chunked runs equal single runs bit for bit.
 //
 // Validity. A step reads one cell away in each axis, so the wrong values
 // outside a window eat one cell per step into it, and after K steps the
@@ -43,23 +75,12 @@
 //     Ez), so invalidity crosses the band region faster than one cell a
 //     step; with S owned cells it never gets that far before step K.
 //
-// Bound on this card: HBM bytes per cell per step,
-//   (5 reads x window / owned + 3 writes) x 4 B / K,
-// counting ce and ch once per sweep (their re-reads inside a sweep hit L1
-// or L2). The planner's shape at 4096^2 and 8192^2 is K = 6 with 80 x 96
-// windows over 68 x 84 owned cells: (5 x 1.345 + 3) x 4 / 6 = 6.5 B/cell/step,
-// 517 GCells/s at the data sheet's 3.35 TB/s (700 W), against K1's 44 B
-// (76 GCells/s). At K = 1 (K3) it is 33 B with 80 x 96 windows over 78 x 94
-// (102 GCells/s). With HBM that far off, K2 is bound inside the SM: about 13
-// shared-memory accesses and two ce/ch loads per cell per step, and 2 to 7
-// barriers a step with only two 512-thread blocks an SM to hide them (one
-// block an SM, with 128 x 128 windows, ran half as fast). Later work: more
-// blocks an SM, TMA loads of the next window while this one steps, clusters
-// sharing halos, a persistent grid.
-//
 // The source amplitudes amp[0..steps) of the sweep are computed by the caller
 // on the device, so chunked runs inject exactly what one run does.
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "fdtd_step.cuh"
 
@@ -68,9 +89,16 @@ namespace {
 using fdtd::kBand;
 using fdtd::kStrip;
 
-constexpr int kThreadsX = 32;   // threads along a window row
-constexpr int kThreadsY = 16;   // threads down a window column
+constexpr int kR = 16;                        // window rows a thread holds
+constexpr int kWarpsX = 3;                    // warps across a window
+constexpr int kWarpsY = 5;                    // warps down a window
+constexpr int kWinW = 32 * kWarpsX;           // interior window columns: 96
+constexpr int kWinH = kR * kWarpsY;           // interior window rows: 80
+constexpr int kThreadsX = 32;                 // a warp is one row of threads
+constexpr int kThreadsY = kWarpsX * kWarpsY;  // 15
 constexpr int kThreads = kThreadsX * kThreadsY;
+constexpr int kLd = kWinW + 4;                // TMA box width: window + alignment
+constexpr unsigned kFull = 0xffffffffu;
 
 // Owned range [own0, own1) and window [win0, win1) of tile t along one axis
 // of n cells, tiles of T cells, halo K. Mirrored by ops/fdtd_ttiled.py.
@@ -87,6 +115,18 @@ __device__ __forceinline__ Span tile_span(int t, int T, int K, int n) {
   return s;
 }
 
+struct Fields {
+  const float* __restrict__ ez_in;
+  const float* __restrict__ hx_in;
+  const float* __restrict__ hy_in;
+  float* __restrict__ ez_out;
+  float* __restrict__ hx_out;
+  float* __restrict__ hy_out;
+  const float* __restrict__ ce;
+  const float* __restrict__ ch;
+  const float* __restrict__ amp;
+};
+
 // f(wi, wj) over window rows [i0, i1) and columns [j0, j1), the block's
 // threads spread over the rows and, within a row, over consecutive columns.
 template <typename F>
@@ -96,25 +136,20 @@ __device__ __forceinline__ void for_cells(int i0, int i1, int j0, int j1, F f) {
   }
 }
 
-// Shared memory: Ez, Hx, Hy windows (wh x ld each), then the pre-step Mur
-// strips: left and right (wh x 6), top and bottom (6 x ld). ld is odd, so
-// the row-per-thread band chains hit 32 different banks.
-__global__ void __launch_bounds__(kThreads, 2)
-ttiled_sweep(const float* __restrict__ ez_in, const float* __restrict__ hx_in,
-             const float* __restrict__ hy_in, float* __restrict__ ez_out,
-             float* __restrict__ hx_out, float* __restrict__ hy_out,
-             const float* __restrict__ ce, const float* __restrict__ ch,
-             const float* __restrict__ amp, int N, int M, int TH, int TW,
-             int K, int steps, int ld, int sx, int sy, float coef) {
-  extern __shared__ float smem[];
-  const Span rs = tile_span(blockIdx.y, TH, K, N);
-  const Span cs = tile_span(blockIdx.x, TW, K, M);
+// Edge tiles: the window holds a Mur band, a corner or the domain's edge.
+// Shared memory: Ez, Hx, Hy, ce, ch windows (wh x ld each), then the
+// pre-step Mur strips: left and right (wh x 6), top and bottom (6 x ld).
+__device__ __forceinline__ void edge_sweep(const Fields& f, float* smem, const Span& rs,
+                                           const Span& cs, int N, int M, int ldg, int steps,
+                                           int ld, int sx, int sy, float coef) {
   const int r0 = rs.win0, c0 = cs.win0;
   const int wh = rs.win1 - r0, ww = cs.win1 - c0;
   float* ez = smem;
   float* hx = ez + wh * ld;
   float* hy = hx + wh * ld;
-  float* p_l = hy + wh * ld;
+  float* ce = hy + wh * ld;
+  float* ch = ce + wh * ld;
+  float* p_l = ch + wh * ld;
   float* p_r = p_l + wh * kStrip;
   float* p_t = p_r + wh * kStrip;
   float* p_b = p_t + kStrip * ld;
@@ -126,10 +161,12 @@ ttiled_sweep(const float* __restrict__ ez_in, const float* __restrict__ hx_in,
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
 
   for_cells(0, wh, 0, ww, [&](int wi, int wj) {
-    const int g = (r0 + wi) * M + c0 + wj, k = wi * ld + wj;
-    ez[k] = ez_in[g];
-    hx[k] = hx_in[g];
-    hy[k] = hy_in[g];
+    const int g = (r0 + wi) * ldg + c0 + wj, k = wi * ld + wj;
+    ez[k] = f.ez_in[g];
+    hx[k] = f.hx_in[g];
+    hy[k] = f.hy_in[g];
+    ce[k] = f.ce[g];
+    ch[k] = f.ch[g];
   });
   __syncthreads();
 
@@ -143,7 +180,7 @@ ttiled_sweep(const float* __restrict__ ez_in, const float* __restrict__ hx_in,
       if (top && wi < kStrip) p_t[wi * ld + wj] = e;
       if (bot && wi >= wh - kStrip) p_b[(wi - (wh - kStrip)) * ld + wj] = e;
       if (i < N - 1 && j < M - 1 && wi + 1 < wh && wj + 1 < ww) {
-        fdtd::h_update(ez, __ldg(ch + i * M + j), hx, hy, k, ld);
+        fdtd::h_update(ez, ch[k], hx, hy, k, ld);
       }
     });
     __syncthreads();
@@ -152,7 +189,7 @@ ttiled_sweep(const float* __restrict__ ez_in, const float* __restrict__ hx_in,
     for_cells(1, wh, 1, ww, [&](int wi, int wj) {
       const int i = r0 + wi, j = c0 + wj;
       if (i < N - 1 && j < M - 1) {
-        fdtd::e_interior(ez, hx, hy, __ldg(ce + i * M + j), wi * ld + wj, ld);
+        fdtd::e_interior(ez, hx, hy, ce[wi * ld + wj], wi * ld + wj, ld);
       }
     });
     __syncthreads();
@@ -209,7 +246,7 @@ ttiled_sweep(const float* __restrict__ ez_in, const float* __restrict__ hx_in,
 
     // (7) additive point source, in every window that holds it.
     if (source) {
-      if (tid == 0) ez[(sx - r0) * ld + sy - c0] += amp[n];
+      if (tid == 0) ez[(sx - r0) * ld + sy - c0] += f.amp[n];
       __syncthreads();
     }
   }
@@ -217,49 +254,373 @@ ttiled_sweep(const float* __restrict__ ez_in, const float* __restrict__ hx_in,
   const int oi0 = rs.own0 - r0, oi1 = rs.own1 - r0;
   const int oj0 = cs.own0 - c0, oj1 = cs.own1 - c0;
   for_cells(oi0, oi1, oj0, oj1, [&](int wi, int wj) {
-    const int g = (r0 + wi) * M + c0 + wj, k = wi * ld + wj;
-    ez_out[g] = ez[k];
-    hx_out[g] = hx[k];
-    hy_out[g] = hy[k];
+    const int g = (r0 + wi) * ldg + c0 + wj, k = wi * ld + wj;
+    f.ez_out[g] = ez[k];
+    f.hx_out[g] = hx[k];
+    f.hy_out[g] = hy[k];
   });
+}
+
+// Edge exchange between the warps of the interior body. Warp (wx, wy) holds
+// window rows [kR wy, kR wy + kR) of column 32 wx + lane. Slots that no warp
+// writes (below the last warp row, right of the last warp column, above
+// the first, left of the first) hold 0: the cells that read them lie on the
+// window's edge, where the values are invalid anyway.
+struct Exchange {
+  float ez_row[kWarpsY + 1][kWinW];  // [wy]: Ez of warp row wy's first row
+  float hx_row[kWarpsY + 1][kWinW];  // [wy + 1]: Hx of warp row wy's last row
+  float ez_col[kWarpsX + 1][kWinH];  // [wx]: Ez of warp column wx's lane 0
+  float hy_col[kWarpsX + 1][kWinH];  // [wx + 1]: Hy of warp column wx's lane 31
+};
+
+__device__ __forceinline__ void clear_exchange(Exchange& x) {
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  for (int k = tid; k < kWinW; k += kThreads) {
+    x.ez_row[kWarpsY][k] = 0.0f;
+    x.hx_row[0][k] = 0.0f;
+  }
+  for (int k = tid; k < kWinH; k += kThreads) {
+    x.ez_col[kWarpsX][k] = 0.0f;
+    x.hy_col[0][k] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ bool is_interior(const Span& rs, const Span& cs, int N, int M) {
+  return rs.win0 > 0 && rs.win1 < N && cs.win0 > 0 && cs.win1 < M;
+}
+
+// Tile geometry of one sweep, and the list the persistent blocks walk.
+struct Plan {
+  const int* __restrict__ tiles;  // (row tile, column tile) pairs, edge tiles first
+  int n_tiles, N, M, ldg, TH, TW, K;
+};
+
+__device__ __forceinline__ void spans_of(const Plan& p, int item, Span& rs, Span& cs) {
+  rs = tile_span(p.tiles[2 * item], p.TH, p.K, p.N);
+  cs = tile_span(p.tiles[2 * item + 1], p.TW, p.K, p.M);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// TMA descriptors of the five fields a sweep reads: boxes of kWinH rows x
+// kLd columns of the (N, ldg) float arrays (ldg a multiple of 4: rows start
+// on 16 bytes, as TMA requires).
+struct Maps {
+  CUtensorMap ez, hx, hy, ce, ch;
+};
+
+// One thread starts the TMA loads of an interior window -- Ez, Hx, Hy, ce,
+// ch, one kWinH x kLd box each -- into `win` ([5][kWinH][kLd], 128-byte
+// aligned); they complete on `bar`. A box must start on a 16-byte column,
+// so it starts at the window's first column rounded down to 4, and the
+// window lies `shift` = win0 % 4 floats into each row. Cells of the box
+// outside the window act as its invalid surround; parts of the box outside
+// the grid are zero-filled.
+__device__ __forceinline__ void load_window(const Maps& maps, float* win, uint64_t* bar,
+                                            const Span& rs, const Span& cs) {
+  constexpr unsigned kBytes = 5u * kWinH * kLd * sizeof(float);
+  const unsigned b = smem_addr(bar);
+  // order earlier generic accesses of `win` before the async proxy's writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(kBytes)
+               : "memory");
+  const CUtensorMap* m[5] = {&maps.ez, &maps.hx, &maps.hy, &maps.ce, &maps.ch};
+#pragma unroll
+  for (int a = 0; a < 5; ++a) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(win + a * kWinH * kLd)),
+        "l"(reinterpret_cast<uint64_t>(m[a])), "r"(cs.win0 & ~3), "r"(rs.win0), "r"(b)
+        : "memory");
+  }
+}
+
+// Wait until the phase of `bar` with parity `phase` completes. A load that
+// never lands traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void wait_window(uint64_t* bar, unsigned phase) {
+  const unsigned b = smem_addr(bar);
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(phase)
+        : "memory");
+    if (done) return;
+    if (spin > (1ll << 24)) __trap();
+  }
+}
+
+// Interior tiles: the window lies at least S cells inside the domain on
+// every side, so it holds no Mur band and no corner and every cell has
+// 1 <= i < N-1, 1 <= j < M-1. The fields live in registers: each thread
+// steps kR cells of one window column, with their ce and ch read once, from
+// the window that load_window brought into `win`. Once every thread has
+// read its cells, the window of item `next` (interior; -1 for none) is
+// loaded into `win` while this one steps.
+__device__ __forceinline__ void interior_sweep(const Fields& f, const Plan& p,
+                                               const Maps& maps, Exchange& x, float* win,
+                                               uint64_t* bar, const Span& rs,
+                                               const Span& cs, int next, int steps, int sx,
+                                               int sy) {
+  const int lane = threadIdx.x;
+  const int wx = threadIdx.y % kWarpsX, wy = threadIdx.y / kWarpsX;
+  const int wj = wx * 32 + lane, wi0 = wy * kR;  // window column and first row
+  const int r0 = rs.win0, c0 = cs.win0;
+  float ez[kR], hx[kR], hy[kR], ce[kR], ch[kR];
+  const int shift = c0 & 3;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int k = (wi0 + r) * kLd + shift + wj;
+    ez[r] = win[k];
+    hx[r] = win[kWinH * kLd + k];
+    hy[r] = win[2 * kWinH * kLd + k];
+    ce[r] = win[3 * kWinH * kLd + k];
+    ch[r] = win[4 * kWinH * kLd + k];
+  }
+  __syncthreads();  // every thread has read its cells
+  if (next >= 0 && threadIdx.x == 0 && threadIdx.y == 0) {
+    Span nr, nc;
+    spans_of(p, next, nr, nc);
+    load_window(maps, win, bar, nr, nc);
+  }
+
+  const bool source = r0 <= sx && sx < rs.win1 && c0 <= sy && sy < cs.win1;
+  const int src_r = sx - r0 - wi0;  // the source's row in this thread's run
+  const bool src_mine = source && wj == sy - c0 && 0 <= src_r && src_r < kR;
+
+  for (int n = 0; n < steps; ++n) {
+    // H update: Ez one row down (own registers; the warp below's first row)
+    // and one column right (the next lane; the next warp's lane 0).
+    x.ez_row[wy][wj] = ez[0];
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) x.ez_col[wx][wi0 + r] = ez[r];
+    }
+    __syncthreads();
+    const float ez_below = x.ez_row[wy + 1][wj];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const float e_down = r + 1 < kR ? ez[r + 1] : ez_below;
+      float e_right = __shfl_down_sync(kFull, ez[r], 1);
+      if (lane == 31) e_right = x.ez_col[wx + 1][wi0 + r];
+      hx[r] = fdtd::hx_next(hx[r], ch[r], e_down, ez[r]);
+      hy[r] = fdtd::hy_next(hy[r], ch[r], e_right, ez[r]);
+    }
+
+    // Ez update: Hx one row up, Hy one column left, as above mirrored.
+    x.hx_row[wy + 1][wj] = hx[kR - 1];
+    if (lane == 31) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) x.hy_col[wx + 1][wi0 + r] = hy[r];
+    }
+    __syncthreads();
+    const float hx_above = x.hx_row[wy][wj];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const float hx_up = r > 0 ? hx[r - 1] : hx_above;
+      float hy_left = __shfl_up_sync(kFull, hy[r], 1);
+      if (lane == 0) hy_left = x.hy_col[wx][wi0 + r];
+      ez[r] = fdtd::ez_next(ez[r], ce[r], hy[r], hy_left, hx[r], hx_up);
+    }
+    if (src_mine) {
+      const float a = f.amp[n];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        if (r == src_r) ez[r] += a;
+      }
+    }
+  }
+
+  const int oi0 = rs.own0 - r0, oi1 = rs.own1 - r0;
+  const int oj0 = cs.own0 - c0, oj1 = cs.own1 - c0;
+  if (oj0 <= wj && wj < oj1) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (oi0 <= wi0 + r && wi0 + r < oi1) {
+        const int g = (r0 + wi0 + r) * p.ldg + c0 + wj;
+        f.ez_out[g] = ez[r];
+        f.hx_out[g] = hx[r];
+        f.hy_out[g] = hy[r];
+      }
+    }
+  }
+}
+
+// One sweep. A persistent grid: block b takes items b and b + gridDim.x of
+// p.tiles, then claims further items from the sweep's counter, one item
+// ahead, so that the next interior window is loaded by TMA into shared
+// memory while the current one steps from registers (the host lists edge
+// tiles first, so the slow staged bodies start first and the claimed
+// interior tiles even out the blocks' ends). Shared memory holds that
+// window, or an edge tile's staged window.
+__global__ void __launch_bounds__(kThreads, 1)
+ttiled_sweep(Fields f, Plan p, const __grid_constant__ Maps maps, int* __restrict__ counter,
+             int steps, int ld, int sx, int sy, float coef) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ Exchange x;
+  __shared__ uint64_t bar;
+  __shared__ int claimed[2];
+  const bool leader = threadIdx.x == 0 && threadIdx.y == 0;
+  const int grid = static_cast<int>(gridDim.x);
+  if (leader) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(&bar)), "r"(1u)
+                 : "memory");
+  }
+  clear_exchange(x);
+  __syncthreads();
+  int item = blockIdx.x, next = item + grid, slot = 0;
+  unsigned loads = 0;    // windows loaded so far: the parity of the next wait
+  bool pending = false;  // the current item's window is already on its way
+  while (item < p.n_tiles) {
+    int after = 0;  // the item after next, claimed now, used at the next item
+    if (leader) after = 2 * grid + atomicAdd(counter, 1);
+    Span rs, cs;
+    spans_of(p, item, rs, cs);
+    if (is_interior(rs, cs, p.N, p.M)) {
+      if (!pending && leader) load_window(maps, smem, &bar, rs, cs);
+      bool ahead = false;
+      if (next < p.n_tiles) {
+        Span nr, nc;
+        spans_of(p, next, nr, nc);
+        ahead = is_interior(nr, nc, p.N, p.M);
+      }
+      wait_window(&bar, loads & 1u);
+      ++loads;
+      interior_sweep(f, p, maps, x, smem, &bar, rs, cs, ahead ? next : -1, steps, sx, sy);
+      pending = ahead;
+    } else {
+      edge_sweep(f, smem, rs, cs, p.N, p.M, p.ldg, steps, ld, sx, sy, coef);
+      pending = false;
+    }
+    if (leader) claimed[slot] = after;
+    __syncthreads();  // publishes `after`; this item is done with shared memory
+    item = next;
+    next = claimed[slot];
+    slot ^= 1;
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// A TMA descriptor of kWinH x kLd boxes of an (N, ldg) float array whose
+// first M columns are the grid.
+cudaError_t encode_map(EncodeTiled encode, CUtensorMap* map, const float* base, int N,
+                       int M, int ldg) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(M), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldg) * sizeof(float)};
+  const cuuint32_t box[2] = {kLd, kWinH};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of a block when the largest window is WH x WW: the
+// edge body's staged window (Ez, Hx, Hy, ce, ch at the odd stride WW | 1,
+// and the four pre-step Mur strips) or an interior window's five TMA
+// boxes, whichever is larger.
+size_t dynamic_smem(int WH, int WW) {
+  const int ld = WW | 1;
+  const size_t staged =
+      sizeof(float) * (5 * WH * ld + 2 * WH * kStrip + 2 * kStrip * ld);
+  const size_t window = sizeof(float) * 5 * kWinH * kLd;
+  return staged > window ? staged : window;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The kernel's layout, which the host's planner copies
+// (ops/fdtd_ttiled.py: STATIC_SMEM_BYTES, smem_bytes, WINDOW): out[0] the
+// static shared memory of ttiled_sweep, out[1] its dynamic shared memory for
+// a largest window of WH x WW, out[2] and out[3] the rows and columns of the
+// interior window. Returns the CUDA error of the attribute query.
+int fdtd_ttiled_layout(int WH, int WW, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, ttiled_sweep);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(attr.sharedSizeBytes);
+  out[1] = static_cast<int>(dynamic_smem(WH, WW));
+  out[2] = kWinH;
+  out[3] = kWinW;
+  return static_cast<int>(cudaSuccess);
+}
+
 // Advance the padded state nsteps steps on `stream` (a cudaStream_t of the
 // current device, which holds every pointer): ceil(nsteps / K) sweeps, the
-// last of depth nsteps % K where that is not 0. Sweep s reads buffer set
-// (s even ? a : b) and writes the other, so the result is in b when the
-// number of sweeps is odd, else in a. Tiles are TH x TW owned cells with a
-// halo of K; WH x WW is the largest window of the tiling, which sizes the
-// dynamic shared memory. `amp` holds nsteps source amplitudes. Returns the
-// first CUDA error seen (cudaSuccess = 0); launches asynchronously, so
-// faults during the run surface at the caller's next synchronisation.
+// last of depth nsteps % K where that is not 0. Every array is (N, ldg)
+// floats, 16-byte aligned, ldg >= M a multiple of 4, the grid in its first
+// M columns. Sweep s reads buffer set (s even ? a : b) and writes the
+// other, so the result is in b when the number of sweeps is odd, else in
+// a. Tiles are TH x TW owned cells with a halo of K; `tiles` lists the
+// n_tiles (row tile, column tile) pairs, edge tiles first; WH x WW is the
+// largest window of the tiling, which sizes the edge body's shared memory.
+// `amp` holds nsteps source amplitudes. Returns the first CUDA error seen
+// (cudaSuccess = 0); launches asynchronously, so faults during the run
+// surface at the caller's next synchronisation.
 int fdtd_ttiled_run(float* ez_a, float* hx_a, float* hy_a, float* ez_b,
                     float* hx_b, float* hy_b, const float* ce, const float* ch,
-                    const float* amp, int N, int M, int TH, int TW, int K,
-                    int nsteps, int WH, int WW, int sx, int sy, float coef,
-                    void* stream) {
+                    const float* amp, const int* tiles, int n_tiles, int* counters,
+                    int N, int M, int ldg,
+                    int TH, int TW, int K, int nsteps, int WH, int WW, int sx, int sy,
+                    float coef, void* stream) {
   const int ld = WW | 1;
-  const size_t smem =
-      sizeof(float) * (3 * WH * ld + 2 * WH * kStrip + 2 * kStrip * ld);
+  const size_t smem = dynamic_smem(WH, WW);
   cudaError_t err = cudaFuncSetAttribute(
       ttiled_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ttiled_sweep, kThreads,
+                                                        smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  EncodeTiled encode = nullptr;
+  err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                cudaEnableDefault);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  Maps maps[2];  // the fields read by even and by odd sweeps
+  const float* read[2][3] = {{ez_a, hx_a, hy_a}, {ez_b, hx_b, hy_b}};
+  for (int set = 0; set < 2 && err == cudaSuccess; ++set) {
+    err = encode_map(encode, &maps[set].ez, read[set][0], N, M, ldg);
+    if (err == cudaSuccess) err = encode_map(encode, &maps[set].hx, read[set][1], N, M, ldg);
+    if (err == cudaSuccess) err = encode_map(encode, &maps[set].hy, read[set][2], N, M, ldg);
+    if (err == cudaSuccess) err = encode_map(encode, &maps[set].ce, ce, N, M, ldg);
+    if (err == cudaSuccess) err = encode_map(encode, &maps[set].ch, ch, N, M, ldg);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  const Plan p{tiles, n_tiles, N, M, ldg, TH, TW, K};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((M + TW - 1) / TW, (N + TH - 1) / TH);
   int sweep = 0;
   for (int done = 0; done < nsteps; done += K, ++sweep) {
     const int steps = nsteps - done < K ? nsteps - done : K;
     const bool even = sweep % 2 == 0;
-    ttiled_sweep<<<grid, block, smem, s>>>(
-        even ? ez_a : ez_b, even ? hx_a : hx_b, even ? hy_a : hy_b,
-        even ? ez_b : ez_a, even ? hx_b : hx_a, even ? hy_b : hy_a, ce, ch,
-        amp + done, N, M, TH, TW, K, steps, ld, sx, sy, coef);
+    Fields f{even ? ez_a : ez_b, even ? hx_a : hx_b, even ? hy_a : hy_b,
+             even ? ez_b : ez_a, even ? hx_b : hx_a, even ? hy_b : hy_a,
+             ce, ch, amp + done};
+    ttiled_sweep<<<blocks, block, smem, s>>>(f, p, maps[sweep % 2], counters + sweep, steps,
+                                             ld, sx, sy, coef);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -179,6 +179,55 @@ def test_tiled_kernel_matches_plain_and_emulation(dev, mode, start, source):
             assert err <= 1e-5, f"relative error {err:.3e}"
 
 
+@pytest.mark.parametrize("shape", [(400, 360), (403, 357)], ids=["400x360", "403x357"])
+@pytest.mark.parametrize("mode", ["K2", "K3"])
+def test_tiled_kernel_interior_body(dev, mode, shape):
+    """The register body of interior tiles at the planner's plan, where
+    several interior tiles with full 80 x 96 windows meet at seams, from a
+    random state: held to the float64 plain step and to the float64 tile
+    emulation within 1e-5 relative, and to itself in two chunks bit for bit.
+    403x357 gives rows of 357 floats (padded to 360 for the 16-byte rows
+    that TMA needs) and windows that start off a 16-byte column."""
+    rows, cols = shape
+    nsteps, split = 40, 17
+    (ce, ch, coef), state = _medium_and_state(dev, rows, cols, "random")
+    K = None if mode == "K2" else 1
+    plan = fdtd_ttiled.resolve_plan(rows, cols, K)
+    assert fdtd_ttiled.interior_tiles(rows, cols, *plan) >= 8
+    source = (rows // 2, cols // 2)
+
+    def run(fields, n, offset):
+        if mode == "K2":
+            return fdtd_ttiled.fdtd_multistep_ttiled(*fields, ce, ch, coef, DT, FC, *source,
+                                                     n, "ricker", offset)
+        return fdtd_blocked.fdtd_multistep_blocked(*fields, ce, ch, coef, DT, FC, *source,
+                                                   n, "ricker", offset)
+
+    one = run(state, nsteps, 0)
+    two = run(run(state, split, 0), nsteps - split, split)
+    torch.cuda.synchronize()
+    f64 = (*(f.double() for f in state), ce.double(), ch.double(), coef.double(), DT, FC,
+           *source, nsteps, "ricker", 0)
+    emu = fdtd_ttiled.fdtd_multistep_ttiled_reference(*f64, plan[0], plan[1:])
+    plain = fdtd_fused.fdtd_multistep_fused_reference(*f64)
+    assert boundary_cover(plain[0]) >= 1e-3
+    for k, c, e, p in zip(one, two, emu, plain):
+        assert k.shape == p.shape and torch.equal(k, c)
+        for ref in (e, p):
+            err = float((k.double() - ref).abs().max() / ref.abs().max())
+            assert err <= 1e-5, f"relative error {err:.3e}"
+
+
+@pytest.mark.parametrize("n", [400, 4096, 8192])
+def test_tiled_kernel_layout_matches_planner(dev, n):
+    """The built kernel reports the static and dynamic shared memory, and the
+    interior window, that the planner admitted its plans with."""
+    K, TH, TW = fdtd_ttiled.pick_sweep_depth(n, n)
+    WH, WW = fdtd_ttiled.window_extent(n, TH, K), fdtd_ttiled.window_extent(n, TW, K)
+    fdtd_ttiled._check_layout.cache_clear()
+    fdtd_ttiled._check_layout(WH, WW)
+
+
 def test_simulate_ttiled_uses_kernel(dev):
     N = 64
     eps = np.full((N, N), constants.EPSILON_0)

@@ -124,7 +124,7 @@ def test_direct_solver_c64_refined_hard_scene():
     residual, recomputed here, agrees."""
     N, omega = 160, 24e9
     eps, mu, src = _hard_scene(N)
-    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=20)
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=20, device="cpu")
     x, trace = solver.solve(src, refine_target=1e-8)
     assert x.dtype == torch.complex64 and x.shape == (N, N)
     assert trace[-2] < 1e-8, trace
@@ -142,7 +142,7 @@ def test_direct_solver_odd_grid_matches_jax_field():
 
     N, omega = 63, 24e9
     eps, mu, src = _hard_scene(N)
-    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=12)
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=12, device="cpu")
     assert len(solver.factors.subs) == 4
     x, trace = solver.solve(src, refine_target=1e-8)
     xj, trace_j = JaxDirectSolver(eps, mu, DX, DX, omega, pml_thickness=12).solve(
@@ -160,7 +160,7 @@ def test_solve_batched_matches_single_rhs():
     for i in (1, 2):
         r, c = rng.integers(16, N - 16, 2)
         srcs[i, r, c] = 1.0
-    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=12)
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=12, device="cpu")
     xb, per_sample, trace = solver.solve_batched(srcs, refine_target=1e-8)
     assert xb.shape == (3, N, N) and per_sample.shape == (3,)
     assert np.all(per_sample < 1e-8), per_sample
@@ -177,7 +177,7 @@ def test_growth_diagnostic_and_stall_warning():
     element-growth diagnostic; the solve still refines to the floor."""
     N, omega = 96, 24e9
     eps, mu, src = _hard_scene(N)
-    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=16)
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=16, device="cpu")
     assert np.isfinite(solver.factor_growth) and 0 < solver.factor_growth < 1e6
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
@@ -227,7 +227,7 @@ def test_huge_rhs_norms_stay_finite():
     batch = torch.stack([x, 1e200 * x])
     assert scaled_norm(batch, batched=True)[1] == pytest.approx(
         1e200 * float(scaled_norm(x)), rel=1e-12)
-    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=8)
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=8, device="cpu")
     _, trace_1 = solver.solve(src, rhs_scale=1.0, refine_target=1e-9)
     _, trace_big = solver.solve(src * 1e20, rhs_scale=-1j * omega, refine_target=1e-9)
     assert np.allclose(trace_1[:2], trace_big[:2], rtol=1e-6, atol=0)
@@ -238,4 +238,4 @@ def test_huge_rhs_norms_stay_finite():
 def test_unported_factor_modes_raise(mode):
     eps, mu, _ = _hard_scene(16)
     with pytest.raises(NotImplementedError, match="item 12"):
-        DirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=4, **{mode: True})
+        DirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=4, device="cpu", **{mode: True})

@@ -133,7 +133,7 @@ def test_run_fdfd_plain_matches_jax():
     src = np.zeros((N, N))
     src[32, 32] = 1.0
     kw = dict(pml_thickness=10, tol=1e-8, maxiter=2000)
-    res = run_fdfd(eps, mu, DX, DX, OMEGA, src, dtype=torch.complex128, **kw)
+    res = run_fdfd(eps, mu, DX, DX, OMEGA, src, dtype=torch.complex128, device="cpu", **kw)
     jres = jax_run_fdfd(eps, mu, DX, DX, OMEGA, src, dtype=jnp.complex128, **kw)
     assert res.x.shape == (N, N) and res.relative_residual < 1e-7
     assert _rel(res.x.numpy(), jres.x) < 1e-6
@@ -148,7 +148,7 @@ def test_run_fdfd_refined_matches_jax():
     src = np.zeros((N, N))
     src[20, 40] = 1.0
     kw = dict(pml_thickness=10, refine_target=1e-9, tol=1e-5, restart=20, maxiter=400)
-    res = run_fdfd(eps, mu, DX, DX, OMEGA, src, **kw)
+    res = run_fdfd(eps, mu, DX, DX, OMEGA, src, device="cpu", **kw)
     jres = jax_run_fdfd(eps, mu, DX, DX, OMEGA, src, **kw)
     assert isinstance(res, RefinedSolveResult) and res.converged
     assert res.x.dtype == torch.complex64 and res.x64.dtype == torch.complex128
@@ -165,3 +165,19 @@ def test_library_methods_not_ported(method):
         solve_fdfd(op, torch.zeros((16, 16), dtype=torch.complex64), method=method)
     with pytest.raises(ValueError, match="unknown method"):
         solve_fdfd(op, torch.zeros((16, 16), dtype=torch.complex64), method="cg")
+
+
+def test_entry_points_default_to_the_card():
+    """DirectSolver and run_fdfd run on the card unless the caller asks for
+    the CPU, as FDTDConfig.device does; make_operator keeps the CPU default
+    (chip_smoke.py builds its CPU complex128 recheck operator through it)."""
+    import inspect
+
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+    from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig
+
+    def default(fn):
+        return inspect.signature(fn).parameters["device"].default
+
+    assert default(DirectSolver.__init__) == default(run_fdfd) == FDTDConfig.device == "cuda"
+    assert default(make_operator) == "cpu"

@@ -208,16 +208,22 @@ SHAPES = [(4096, 4096), (8192, 8192), (2305, 2305), (4104, 4096), (3001, 4999),
 
 @pytest.mark.parametrize("shape", SHAPES, ids=[f"{n}x{m}" for n, m in SHAPES])
 def test_planner_admits_and_fits(shape):
-    """The planner's tiling: windows fit two blocks an SM (and so the 227 KB
-    a block may use), every tile owns >= S cells a side, every window covers
-    its tile plus a halo of K (clipped at the domain) and starts and ends at
-    the domain edge or >= S cells inside it, and the redundant compute stays
+    """The planner's tiling fits the kernel's budget: the dynamic shared
+    memory (the edge body's staged window, or the interior window copied in
+    ahead) plus the static exchange buffers fit the 227 KB a block may use,
+    one 480-thread block an SM; interior windows fit the register body's
+    80 x 96 cells. Every tile owns >= S cells a side, every window covers its
+    tile plus a halo of K (clipped at the domain) and starts and ends at the
+    domain edge or >= S cells inside it, and the redundant compute stays
     within the cap."""
     N, M = shape
     K, TH, TW = fdtd_ttiled.pick_sweep_depth(N, M)
     assert K in fdtd_ttiled.DEPTHS
     WH, WW = fdtd_ttiled.window_extent(N, TH, K), fdtd_ttiled.window_extent(M, TW, K)
-    assert fdtd_ttiled.smem_bytes(WH, WW) <= fdtd_ttiled.SMEM_BUDGET < fdtd_ttiled.SMEM_LIMIT
+    assert fdtd_ttiled.smem_bytes(WH, WW) <= fdtd_ttiled.SMEM_BUDGET
+    assert fdtd_ttiled.SMEM_BUDGET + fdtd_ttiled.STATIC_SMEM_BYTES == fdtd_ttiled.SMEM_LIMIT
+    if fdtd_ttiled.interior_tiles(N, M, K, TH, TW):
+        assert TH + 2 * K <= fdtd_ttiled.WINDOW[0] and TW + 2 * K <= fdtd_ttiled.WINDOW[1]
     assert fdtd_ttiled.redundancy(N, M, K, TH, TW) <= fdtd_ttiled.MAX_REDUNDANCY
     for n, T in ((N, TH), (M, TW)):
         spans = fdtd_ttiled.tile_spans(n, T, K)
@@ -228,7 +234,69 @@ def test_planner_admits_and_fits(shape):
             assert w0 == 0 or w0 >= S
             assert w1 == n or w1 <= n - S
     if shape in ((4096, 4096), (8192, 8192)):
-        assert (K, TH, TW) == (6, 68, 84)  # the shape fdtd_ttiled.cu's header bounds
+        assert (K, TH, TW) == (8, 64, 80)  # the shape fdtd_ttiled.cu's header bounds
+
+
+# (shape, K, tile); None takes the planner's choice. Forced cases: the
+# smoke's 203x157 7x10 tiles at K = 7 (interior windows of 21x24 between
+# seams), one tile (no interior), 6x6 tiles at K = 1.
+ORDER_CASES = [((4096, 4096), None, None), ((8192, 8192), None, None),
+               ((2048, 2048), 1, None), ((400, 360), None, None),
+               ((203, 157), 7, (7, 10)), ((42, 54), 3, (42, 54)),
+               ((42, 54), 1, (6, 6)), ((3001, 4999), None, None)]
+
+
+@pytest.mark.parametrize("shape,K,tile", ORDER_CASES,
+                         ids=[f"{n}x{m}-K{K}-{t}" for (n, m), K, t in ORDER_CASES])
+def test_tile_order_classifies_every_tile_once(shape, K, tile):
+    """The list the kernel's persistent blocks walk holds every tile exactly
+    once, the edge tiles first. An interior tile's window lies >= S cells
+    inside the domain on all four sides, so it holds no Mur band cell, no
+    corner cell and no cell of a pre-step strip, and every cell has
+    1 <= i < N-1, 1 <= j < M-1; every edge tile's window reaches the domain's
+    edge on some side. The planner's grids of 400x360 and up have interior
+    tiles (4096^2: 3,328 tiles, 3,100 interior)."""
+    N, M = shape
+    K, TH, TW = fdtd_ttiled.resolve_plan(N, M, K, tile)
+    order, n_edge = fdtd_ttiled.tile_order(N, M, K, TH, TW)
+    rows, cols = fdtd_ttiled.tile_spans(N, TH, K), fdtd_ttiled.tile_spans(M, TW, K)
+    assert sorted(order) == [(a, b) for a in range(len(rows)) for b in range(len(cols))]
+    assert len(order) - n_edge == fdtd_ttiled.interior_tiles(N, M, K, TH, TW)
+    for t, (a, b) in enumerate(order):
+        (_, _, r0, r1), (_, _, c0, c1) = rows[a], cols[b]
+        inside = S <= r0 and r1 <= N - S and S <= c0 and c1 <= M - S
+        assert inside == (t >= n_edge)
+        if inside:
+            assert MUR_BAND < r0 and r1 < N - MUR_BAND and MUR_BAND < c0 and c1 < M - MUR_BAND
+        else:
+            assert r0 == 0 or r1 == N or c0 == 0 or c1 == M
+    if min(N, M) >= 400:
+        assert len(order) - n_edge > 0
+    if shape == (4096, 4096):
+        assert (len(order), len(order) - n_edge) == (3328, 3100)
+
+
+def test_emulation_follows_the_kernel_plan():
+    """The emulation at the planner's plan on a 400x360 grid, where 15 of 35
+    tiles are interior with seams between them, equals the plain step bit
+    for bit from a random state over two sweeps and a short one, in the
+    kernel's tile order."""
+    rows, cols, nsteps = 400, 360, 19
+    K, TH, TW = fdtd_ttiled.pick_sweep_depth(rows, cols)
+    order, n_edge = fdtd_ttiled.tile_order(rows, cols, K, TH, TW)
+    assert (K, len(order), len(order) - n_edge) == (8, 35, 15)
+    rng = np.random.default_rng(4)
+    eps = constants.EPSILON_0 * (1.0 + 3.0 * rng.random((rows, cols)))
+    mu = np.full((rows, cols), constants.MU_0)
+    ce, ch, coef = _coefficients(eps, mu)
+    state = [torch.from_numpy(a) for a in _random_state(rng, rows, cols)]
+    src = (rows // 2, cols // 2)
+    plain = fdtd_fused.fdtd_multistep_fused_reference(*state, ce, ch, coef, DT, FC, *src,
+                                                      nsteps, "ricker", 5)
+    emu = fdtd_ttiled.fdtd_multistep_ttiled(*state, ce, ch, coef, DT, FC, *src, nsteps,
+                                            "ricker", 5)
+    for e, p in zip(emu, plain):
+        assert e.shape == p.shape and torch.equal(e, p)
 
 
 @pytest.mark.parametrize("shape,K,tile,match", [
@@ -236,11 +304,43 @@ def test_planner_admits_and_fits(shape):
     ((42, 54), 2, (5, 9), "at least 6"),
     ((42, 54), 2, (8, 9), "at least 6"),         # 42 % 8 = 2: a 2-row last tile
     ((400, 540), 2, (400, 540), "shared memory"),  # one window of the whole grid
-    ((393_222, 16), 1, (6, 16), "launch grid"),    # 65,537 row tiles
+    ((65_536, 32_768), 1, (80, 96), "32-bit"),     # 2^31 cells
+    ((400, 360), 6, (70, 84), "register body"),    # 82-row interior windows
 ])
 def test_check_plan_raises(shape, K, tile, match):
     with pytest.raises(ValueError, match=match):
         fdtd_ttiled.check_plan(*shape, K, *tile)
+
+
+@pytest.mark.parametrize("off", [(0, 0, 0, 0), (16, 0, 0, 0), (0, 4, 0, 0), (0, 0, 16, 0),
+                                 (0, 0, 0, 32)],
+                         ids=["agrees", "static", "dynamic", "rows", "columns"])
+def test_layout_check_against_the_kernel(monkeypatch, off):
+    """Every launch first holds the planner's copy of the kernel's layout to
+    what the built library reports (fdtd_ttiled_layout: static and dynamic
+    shared memory, interior window rows and columns); a library that differs
+    in any of them raises before a launch. The library is faked here: the
+    real one is held to the planner on the card (tests/test_torch_cuda.py)."""
+    WH, WW = 80, 96
+
+    class Lib:
+        def fdtd_ttiled_layout(self, wh, ww, out):
+            planned = (fdtd_ttiled.STATIC_SMEM_BYTES, fdtd_ttiled.smem_bytes(wh, ww),
+                       *fdtd_ttiled.WINDOW)
+            for i, (v, d) in enumerate(zip(planned, off)):
+                out[i] = v + d
+            return 0
+
+    monkeypatch.setattr(fdtd_ttiled._build, "load", Lib)
+    fdtd_ttiled._check_layout.cache_clear()
+    try:
+        if any(off):
+            with pytest.raises(RuntimeError, match="the planner's"):
+                fdtd_ttiled._check_layout(WH, WW)
+        else:
+            fdtd_ttiled._check_layout(WH, WW)
+    finally:
+        fdtd_ttiled._check_layout.cache_clear()
 
 
 def test_cpu_tensors_launch_nothing_and_are_not_modified():

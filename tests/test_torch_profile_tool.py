@@ -95,3 +95,18 @@ def test_fdfd_paths_option_and_no_card(monkeypatch, capsys):
     monkeypatch.setattr(profile_fdfd.torch.cuda, "is_available", lambda: False)
     assert profile_fdfd.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_bench_ttiled_needs_the_card(capsys):
+    """tools/bench_ttiled.py times the card only: without CUDA it prints why
+    and returns 1, before importing any checkout."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_ttiled", Path(__file__).resolve().parents[1] / "tools" / "bench_ttiled.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    args = bench.parse_args(["--root", "elsewhere", "--ksweep", "4,8"])
+    assert args.ksweep == "4,8" and args.root == Path("elsewhere")
+    assert bench.parse_args([]).root == Path(spec.origin).resolve().parents[1]
+    if not bench.torch.cuda.is_available():
+        assert bench.main([]) == 1
+        assert "no CUDA device" in capsys.readouterr().err
