@@ -10,11 +10,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    nvcc per source, in parallel) and prints ptxas' registers and spills per
    kernel. The phase fails unless build.log holds ttiled_sweep's report
    with no spill and the static shared memory the planner budgets
-   (fdtd_ttiled.STATIC_SMEM_BYTES). Then K2's dynamic shared memory per
-   block at the 4096^2 plan (ptxas reports static shared memory only).
-3. Kernel vs plain version on an odd non-square grid (203x157) with a
-   seeded random medium, Ricker and sinusoidal sources, each run once as one
-   call and once as two chunks with a step offset:
+   (fdtd_ttiled.STATIC_SMEM_BYTES), and a report of every variant of K1's
+   resident kernel (resident_steps) with no spill and the registers the
+   planner plans with; each variant's layout is held to the planner's
+   (fdtd_fused._check_layout). Then K2's dynamic shared memory per block at
+   the 4096^2 plan (ptxas reports static shared memory only), and the
+   largest square K1's resident planner admits on this card ("the resident
+   limit": 1034^2 on an H100).
+3. K1 vs its plain version on an odd non-square grid (203x157) with a
+   seeded random medium, Ricker and sinusoidal sources, in both modes:
+   streaming, and resident at the planner's tile grid and at forced grids of
+   9 x 7 and 16 x 8 tiles, whose seams cross every Mur band (a 5 x 5 corner
+   lies in one tile by construction). Each runs once as one call and once as
+   two chunks with a step offset:
    - from a zero state, 300 steps, source at the centre and at (7, 9): the
      source's timing and place. In 300 steps the wave spreads about 45
      cells, so these runs leave most of the Mur bands near zero;
@@ -25,17 +33,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      as an error about 100 times the tolerance.
    The float32 kernel is held against the float64 plain version on the same
    card, fed the same float32-rounded coefficients and state; the chunked
-   run must equal the single run bit for bit.
-4. The slice at full size: the 2048^2 bench scene through
-   ``simulate(backend="auto")`` with 10 frames of 2000 steps. The backend must
-   resolve to the kernel and the launch counter must advance by the launches
-   of that run; fields and snapshots must be finite and non-zero. Then 200
-   steps of the same scene on the kernel and on the float64 plain path: the
-   interior and the source at full size (in 200 steps the wave from the
-   centre reaches no Mur band; phase 3 checks those).
-5. Time: GCells/s of the kernel and of the plain float32 torch path at 2048^2,
-   1000 steps per timed run after a warm-up, CUDA events, in turns
-   (plain, kernel, kernel, plain).
+   run must equal the single run, and every resident run the streaming one,
+   bit for bit. The launch counter must advance by one per resident call
+   and two per streaming step.
+4. The 2048^2 bench scene through ``simulate`` with 10 frames of 2000 steps:
+   with ``backend="auto"``, which must resolve to "ttiled" (the K2 counter
+   advances by that run's sweeps, K1's by nothing), and with
+   ``backend="fused"``, K1's streaming mode (two launches a step, counted).
+   Fields and snapshots must be finite and non-zero. Then 200 steps of the
+   same scene on both and on the float64 plain path: the interior and the
+   source at full size (in 200 steps the wave from the centre reaches no
+   Mur band; phase 3 checks those).
+16. K1's main path, the resident mode: ``simulate(backend="auto")`` on the
+   bench scene at the resident limit, 2000 steps in 10 frames: "auto" must
+   resolve to "fused" and the counters show one resident launch a frame and
+   no other; fields and snapshots finite and non-zero; 200 steps against the
+   float64 plain path. Then the CLI's default rollout, ``fdtd --size 200
+   --steps 1000 --frames 200 --device cuda``, in this process: 200 resident
+   launches, a finite non-zero max |Ez|; and 200 steps of it in 5-step
+   frames against the float64 plain path. Also asserts what "auto" picks at
+   200^2, the resident limit, 2048^2 and 4096^2. (Runs between phases 4
+   and 5.)
+5. Time: GCells/s of K1's streaming mode and of the plain float32 torch path
+   at 2048^2 through ``simulate``, 1000 steps per timed run after a warm-up,
+   CUDA events, in turns (plain, kernel, kernel, plain).
 6. K2 (the temporally tiled kernel) vs its plain versions on the 203x157
    medium of phase 3, with forced small tiles so that tile seams cross every
    band and corner and windows of non-edge tiles hold band cells (7x10
@@ -67,13 +88,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    2048^2 scene: 200 steps, its counter advancing by 200, against phase 4's
    float64 run. Each prints its plan and count of interior tiles, which must
    be above 0.
-9. Time: ms a step of K2, K1 and the plain float32 path at 4096^2 and
-   8192^2, and of K2, K3 mode, K1 and plain at 2048^2, through the op-level
-   entry points with the state on the card; CUDA events after a warm-up, in
-   turns (plain, K1, K2[, K3, K3], K2, K1, plain). K2's and K3's ms a step
-   are printed beside their share of two bounds: the roofline (five inputs
-   read and three outputs written once, 11 float32 operations a cell a step
-   at 67 TFLOP/s, 3.35 TB/s) and the HBM traffic of the kernel's own plan.
+9. Time: ms a step of K2, K1 (streaming there) and the plain float32 path
+   at 4096^2 and 8192^2, and of K2, K3 mode, K1 and plain at 2048^2, through
+   the op-level entry points with the state on the card; CUDA events after a
+   warm-up, in turns (plain, K1, K2[, K3, K3], K2, K1, plain). K2's and K3's
+   ms a step are printed beside their share of two bounds: the roofline
+   (five inputs read and three outputs written once, 11 float32 operations
+   a cell a step at 67 TFLOP/s, 3.35 TB/s) and the HBM traffic of the
+   kernel's own plan. Then K1's resident and streaming modes beside K2
+   (tools/bench_fused.py's ``time_modes``: in turns, twice each) at 128^2,
+   200^2, 256^2, 512^2, 768^2, 1024^2, the resident limit, 1536^2, 2048^2
+   and 2304^2, each at 5, 8 and 200 steps a call, printed beside what "auto"
+   picks there; and the plain step at the resident limit.
 
 10. FDFD operator on the ``fdfd512`` scene (bench.py:126-134: 512^2, dx
     1e-3 m, omega 17e9, a 2.5x block, PML 40): the complex64 apply and
@@ -113,10 +139,12 @@ CUDA's expf differs from the plain path's exp in the last bits, both far
 inside that bound at float32.
 
 Before its last line the script prints one JSON object with each kernel's
-launches (counted in its main-path run of phase 4 or 8), error, times and
-roofline bound (K2 and K3 also their plan and share of the bound; no single
-PyTorch call computes a leapfrog step, so library_ms is null), one
-with the GCells/s of phase 5, one with the times, errors, plan-traffic
+launches (counted in its main-path run of phase 16, K1, or 8, K2 and K3),
+error, times, roofline bound and share of it (K1: the resident mode at the
+resident limit, its streaming mode's numbers under "streaming"; K2 and K3
+also their plan; no single PyTorch call computes a leapfrog step, so
+library_ms is null), one with the GCells/s of phase 5, one with phase 9's
+table of K1's modes, one with the times, errors, plan-traffic
 bounds and tile counts of phases 6-9,
 one with the times, residuals and peak memory of phases 10-15, and the
 nvidia-smi line; its last line is
@@ -125,7 +153,10 @@ nvidia-smi line; its last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import re
 import sys
@@ -355,7 +386,7 @@ def fdfd_phases(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     op32 = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex64, device=dev)
     op128 = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex128, device=dev)
-    op128_cpu = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex128)
+    op128_cpu = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex128, device="cpu")
     rng = np.random.default_rng(1)
     x = torch.tensor(rng.standard_normal((N, N)) + 1j * rng.standard_normal((N, N)))
     errs = {"apply_c64": complex_rel_err(op32.apply(x.to(dev, torch.complex64)), op128_cpu.apply(x)),
@@ -398,7 +429,7 @@ def fdfd_phases(dev) -> dict:
     small = DirectSolver(eps_s, mu_s, dx, dx, omega, device=dev)
     xs64, _ = small.solve(src_s, rhs_scale=1.0, refine_target=1e-10, return_split=True)
     coeffs = [c.numpy().ravel() for c in five_point_coefficients(
-        make_operator(eps_s, mu_s, dx, dx, omega, dtype=torch.complex128))]
+        make_operator(eps_s, mu_s, dx, dx, omega, dtype=torch.complex128, device="cpu"))]
     d_, e_, w_, s2, n2 = coeffs
     off = 2 * n128
     A = sp.diags([d_, e_[:-2], w_[2:], s2[:-off], n2[off:]], [0, 2, -2, off, -off], format="csc")
@@ -545,8 +576,12 @@ def main() -> int:
     from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, resolve_backend, simulate
     from fdtd2d_tpu_torch.fdtd.step import MUR_BAND, precompute_coefficients
     from fdtd2d_tpu_torch.ops import _build, fdtd_blocked, fdtd_fused, fdtd_ttiled
+    from fdtd2d_tpu_torch import cli
     from fdtd2d_tpu_torch.utils.metrics import Timer, device_info, throughput_gcells
 
+    spec = importlib.util.spec_from_file_location("bench_fused", ROOT / "tools" / "bench_fused.py")
+    bench_fused = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_fused)  # phase 9 times K1's modes with its time_modes
     pkg_root = Path(fdtd2d_tpu_torch.__file__).resolve().parents[1]
     if pkg_root != ROOT:
         raise RuntimeError(f"fdtd2d_tpu_torch was imported from {pkg_root}, "
@@ -566,25 +601,32 @@ def main() -> int:
     log = (lib_path.parent / "build.log")
     if not log.exists():
         raise AssertionError(f"no ptxas report beside the library: {log} is missing")
-    kernel_name, ttiled_smem, ttiled_spills = "?", None, 0
+    kernel_name, ttiled_smem, ttiled_spills, resident_registers = "?", None, 0, []
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
-            kernel_name = next((k for k in ("h_update_and_save_strips", "e_interior_update",
-                                            "boundary_update", "ttiled_sweep") if k in line),
-                               line.strip())
+            kernel_name = next((k for k in ("h_update", "e_update", "resident_steps",
+                                            "ttiled_sweep") if k in line), line.strip())
         elif "registers" in line or "spill" in line:
             print(f"   ptxas {kernel_name}: {line.strip()}")
-            if kernel_name != "ttiled_sweep":
+            if kernel_name not in ("ttiled_sweep", "resident_steps"):
                 continue
             if "spill" in line:
-                ttiled_spills += 1
+                ttiled_spills += kernel_name == "ttiled_sweep"
                 if "0 bytes spill stores, 0 bytes spill loads" not in line:
-                    raise AssertionError(f"ptxas spills in ttiled_sweep: {line.strip()}")
+                    raise AssertionError(f"ptxas spills in {kernel_name}: {line.strip()}")
             if "registers" in line:
+                if kernel_name == "resident_steps":
+                    resident_registers.append(int(re.search(r"Used (\d+) registers", line).group(1)))
+                    continue
                 m = re.search(r"(\d+) bytes smem", line)
                 ttiled_smem = int(m.group(1)) if m else 0
     if ttiled_spills == 0 or ttiled_smem is None:
         raise AssertionError(f"{log} holds no register and spill report of ttiled_sweep")
+    planned_registers = sorted(v.registers for v in fdtd_fused.VARIANTS)
+    if sorted(resident_registers) != planned_registers:
+        raise AssertionError(f"{log} reports resident_steps variants of {resident_registers} "
+                             f"registers; the planner's variants hold {planned_registers} "
+                             f"(fdtd_fused.VARIANTS)")
     if ttiled_smem != fdtd_ttiled.STATIC_SMEM_BYTES:
         raise AssertionError(f"ptxas reports {ttiled_smem} B of static shared memory in "
                              f"ttiled_sweep; the planner budgets "
@@ -595,10 +637,19 @@ def main() -> int:
     print(f"   ttiled_sweep at 4096^2 (K={K}, {TH}x{TW} tiles): {smem} B of dynamic "
           f"shared memory a block, {fdtd_ttiled.STATIC_SMEM_BYTES} B static "
           f"(one 480-thread block an SM; budget {fdtd_ttiled.SMEM_BUDGET} B dynamic)")
+    numbers = fdtd_fused.device_numbers(dev)
+    for variant in fdtd_fused.VARIANTS:
+        fdtd_fused._check_layout(variant, dev)  # the built kernel is the planner's
+    admitted = [n for n in range(fdtd_fused.MIN_SIDE, 2049)
+                if bench_fused.resident_plan(n, n, dev) is not None]
+    limit = max(admitted)
+    print(f"   resident_steps: {len(fdtd_fused.VARIANTS)} variants of {planned_registers} "
+          f"registers, no spill; device numbers {numbers}; the largest square the resident "
+          f"planner admits is {limit}^2")
     done(t0, f"built {lib_path.relative_to(ROOT)} in {build_timer.seconds:.2f} s")
 
     # -- 3. kernel vs plain version, edge cases --------------------------------
-    t0 = phase("3. kernel vs plain float64, 203x157")
+    t0 = phase("3. K1, streaming and resident, vs plain float64, 203x157")
     rows, cols = 203, 157
     rng = np.random.default_rng(0)
     eps = constants.EPSILON_0 * (1.0 + 3.0 * rng.random((rows, cols)))
@@ -620,77 +671,184 @@ def main() -> int:
                                                    ((rows - 1, cols), Z0)))}
     cases = (("zero", 300, 137, ((rows // 2, cols // 2), (7, 9))),
              ("random", 60, 27, ((rows - 8, cols - 10),)))
+    # K1's modes: streaming; resident at the planner's tile grid and at two
+    # forced ones, 9 x 7 and 16 x 8 tiles (of 22-23 x 22-23 and 12-13 x 19-20
+    # cells), whose seams cross every Mur band. A 5 x 5 corner lies in one tile
+    # by construction (tiles own at least 6 cells a side).
+    k1_modes = (("streaming", None), ("resident", None), ("resident", (9, 7)),
+                ("resident", (16, 8)))
     worst, least_cover = 0.0, 1.0
     for start, nsteps, split, sources in cases:
         for (sx, sy), kind_ in ((s, k) for s in sources for k in ("ricker", "sinusoidal")):
-            def run(dtype, n, offset, fields):
+            def run(dtype, n, offset, fields, mode=None, tiles=None):
                 ce, ch, coef = coeffs[dtype]
-                fn = (fdtd_fused.fdtd_multistep_fused if dtype == torch.float32
-                      else fdtd_fused.fdtd_multistep_fused_reference)
                 fields = tuple(f.to(dtype) for f in fields)
-                return fn(*fields, ce, ch, coef, DT, FC, sx, sy, n, kind_, offset)
+                args = (*fields, ce, ch, coef, DT, FC, sx, sy, n, kind_, offset)
+                if dtype == torch.float64:
+                    return fdtd_fused.fdtd_multistep_fused_reference(*args)
+                return fdtd_fused.fdtd_multistep_fused(*args, mode=mode, tiles=tiles)
 
             case = f"{start} state, {nsteps} steps, source {(sx, sy)}, {kind_}"
-            single = run(torch.float32, nsteps, 0, states[start])
-            chunked = run(torch.float32, nsteps - split, split,
-                          run(torch.float32, split, 0, states[start]))
             plain = run(torch.float64, nsteps, 0, states[start])
-            torch.cuda.synchronize()
             if start == "random":
                 cover = boundary_cover(plain[0], MUR_BAND)
                 least_cover = min(least_cover, cover)
                 if not cover >= COVER:
                     raise AssertionError(f"{case}: a Mur band or corner holds only "
                                          f"{cover:.2e} of max |Ez| (< {COVER})")
-            case_worst = 0.0
-            for name, k, c, p in zip(("Ez", "Hx", "Hy"), single, chunked, plain):
-                if k.shape != p.shape:
-                    raise AssertionError(f"{name}: shape {tuple(k.shape)} != {tuple(p.shape)}")
-                if not torch.equal(k, c):
-                    raise AssertionError(f"{name}: chunked run differs from one run ({case})")
-                err = rel_err(k, p)
-                case_worst = max(case_worst, err)
-                if not err <= TOL:
-                    raise AssertionError(f"{name}: relative error {err:.3e} > {TOL} ({case})")
+            case_worst, first = 0.0, None
+            for mode, tiles in k1_modes:
+                what = f"{mode}{'' if tiles is None else f' {tiles[0]}x{tiles[1]} tiles'}"
+                before = fdtd_fused.launches, fdtd_fused.resident_launches
+                single = run(torch.float32, nsteps, 0, states[start], mode, tiles)
+                chunked = run(torch.float32, nsteps - split, split,
+                              run(torch.float32, split, 0, states[start], mode, tiles),
+                              mode, tiles)
+                torch.cuda.synchronize()
+                counted = (fdtd_fused.launches - before[0],
+                           fdtd_fused.resident_launches - before[1])
+                if counted != ((3, 3) if mode == "resident" else (4 * nsteps, 0)):
+                    raise AssertionError(f"{what}: counted {counted} launches ({case})")
+                first = first or single
+                for name, k, c, f, p in zip(("Ez", "Hx", "Hy"), single, chunked, first, plain):
+                    if k.shape != p.shape:
+                        raise AssertionError(f"{name}: shape {tuple(k.shape)} != "
+                                             f"{tuple(p.shape)}")
+                    if not torch.equal(k, c):
+                        raise AssertionError(f"{name}: {what} chunked run differs from one "
+                                             f"run ({case})")
+                    if not torch.equal(k, f):
+                        raise AssertionError(f"{name}: {what} differs from streaming ({case})")
+                    err = rel_err(k, p)
+                    case_worst = max(case_worst, err)
+                    if not err <= TOL:
+                        raise AssertionError(f"{name}: {what}: relative error {err:.3e} > "
+                                             f"{TOL} ({case})")
             worst = max(worst, case_worst)
-            print(f"   {case}: ok, relative error {case_worst:.3e}")
+            print(f"   {case}: ok in {len(k1_modes)} modes and tile grids (resident == "
+                  f"streaming, chunked == single), relative error {case_worst:.3e}")
     done(t0, f"worst relative error {worst:.3e} <= {TOL}; chunked == single; "
              f"random state: each band and corner >= {least_cover:.3e} of max |Ez|")
 
     # -- 4. the slice at full size --------------------------------------------
-    t0 = phase("4. simulate(backend='auto') on the 2048^2 bench scene")
+    t0 = phase("4. simulate on the 2048^2 bench scene: backend 'auto' (K2), then 'fused' "
+               "(K1 streaming)")
     N = 2048
     eps, mu = bench_scene(N, constants)
     cfg = FDTDConfig(dt=DT, dx=DX, nsteps=2000, source_xy=(N // 2, N // 2),
                      source_fc=FC, nframes=10, backend="auto", device="cuda")
-    backend = resolve_backend(cfg.backend, (N, N), cfg.device)
-    if backend != "fused":
-        raise AssertionError(f"backend 'auto' resolved to {backend!r}, not 'fused'")
-    fdtd_fused.launches = 0
-    (Ez, Hx, Hy), snaps = simulate(eps, mu, cfg)
+    per_frame = cfg.nsteps // cfg.nframes
+    backend = resolve_backend(cfg.backend, (N, N), cfg.device, per_frame)
+    if backend != "ttiled":
+        raise AssertionError(f"backend 'auto' resolved to {backend!r} at 2048^2, not 'ttiled'")
+    K2048 = fdtd_ttiled.pick_sweep_depth(N, N)[0]
+    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    auto_fields, auto_snaps = simulate(eps, mu, cfg)
     torch.cuda.synchronize()
-    main_launches = fdtd_fused.launches
-    expected = 3 * cfg.nsteps
-    if main_launches != expected:
-        raise AssertionError(f"K1 launch counter advanced by {main_launches}, "
-                             f"expected {expected}")
+    k2_launches_2048 = fdtd_ttiled.launches
+    if (k2_launches_2048, fdtd_fused.launches) != (cfg.nframes * -(-per_frame // K2048), 0):
+        raise AssertionError(f"auto at 2048^2: {k2_launches_2048} K2 and {fdtd_fused.launches} "
+                             f"K1 launches, expected {cfg.nframes * -(-per_frame // K2048)} "
+                             f"and 0")
+    check_fields(auto_fields, auto_snaps, N, cfg.nframes)
+    del auto_snaps
+    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    (Ez, Hx, Hy), snaps = simulate(eps, mu, dataclasses.replace(cfg, backend="fused"))
+    torch.cuda.synchronize()
+    streaming_launches = fdtd_fused.launches
+    if (streaming_launches, fdtd_fused.resident_launches, fdtd_ttiled.launches) != (
+            2 * cfg.nsteps, 0, 0):
+        raise AssertionError(f"fused at 2048^2: K1 launch counter advanced by "
+                             f"{streaming_launches} ({fdtd_fused.resident_launches} resident), "
+                             f"expected {2 * cfg.nsteps} streaming launches")
     check_fields((Ez, Hx, Hy), snaps, N, cfg.nframes)
-    print(f"   {main_launches} K1 launches; max |Ez| = {float(Ez.abs().max()):.4e}")
+    k2_equals_k1 = all(torch.equal(a, f) for a, f in zip(auto_fields, (Ez, Hx, Hy)))
+    del snaps, auto_fields
+    print(f"   auto -> ttiled: {k2_launches_2048} K2 launches; fused: {streaming_launches} K1 "
+          f"launches (two a step); K2's fields equal K1's bit for bit: {k2_equals_k1}; "
+          f"max |Ez| = {float(Ez.abs().max()):.4e}")
 
     short = FDTDConfig(dt=DT, dx=DX, nsteps=200, source_xy=(N // 2, N // 2),
-                       source_fc=FC, backend="auto", device="cuda")
-    plain_cfg = FDTDConfig(dt=DT, dx=DX, nsteps=200, source_xy=(N // 2, N // 2),
-                           source_fc=FC, backend="torch", device="cuda",
-                           dtype=torch.float64)
+                       source_fc=FC, backend="fused", device="cuda")
+    plain_cfg = dataclasses.replace(short, backend="torch", dtype=torch.float64)
     kern, _ = simulate(eps, mu, short)
+    auto_kern, _ = simulate(eps, mu, dataclasses.replace(short, backend="auto"))
     plain, _ = simulate(eps.astype(np.float64), mu.astype(np.float64), plain_cfg)
     torch.cuda.synchronize()
-    errs, abs_err = against_plain(kern, plain, "2048^2 200-step")
+    errs, streaming_abs_err = against_plain(kern, plain, "2048^2 200-step, K1 streaming")
+    against_plain(auto_kern, plain, "2048^2 200-step, auto")
+    del auto_kern
     done(t0, "200 steps vs float64 plain: " +
          ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
+    # -- 16. K1's main path: the resident mode -----------------------------------
+    t0 = phase(f"16. K1 resident: simulate(backend='auto') at {limit}^2, and the CLI's "
+               f"default rollout")
+    eps_l, mu_l = bench_scene(limit, constants)
+    cfg_l = FDTDConfig(dt=DT, dx=DX, nsteps=2000, source_xy=(limit // 2, limit // 2),
+                       source_fc=FC, nframes=10, backend="auto", device="cuda")
+    for shape, per_call, want in (((200, 200), 5, "fused"), ((limit, limit), 200, "fused"),
+                                  ((2048, 2048), 200, "ttiled"), ((4096, 4096), 256, "ttiled")):
+        got = resolve_backend("auto", shape, "cuda", per_call)
+        if got != want:
+            raise AssertionError(f"backend 'auto' resolved to {got!r} at {shape} with "
+                                 f"{per_call} steps a call, not {want!r}")
+    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    fields_l, snaps_l = simulate(eps_l, mu_l, cfg_l)
+    torch.cuda.synchronize()
+    main_launches = fdtd_fused.launches
+    if (main_launches, fdtd_fused.resident_launches, fdtd_ttiled.launches) != (
+            cfg_l.nframes, cfg_l.nframes, 0):
+        raise AssertionError(f"auto at {limit}^2: {main_launches} K1 launches "
+                             f"({fdtd_fused.resident_launches} resident), "
+                             f"{fdtd_ttiled.launches} K2 launches; expected one resident "
+                             f"launch a frame, {cfg_l.nframes}")
+    check_fields(fields_l, snaps_l, limit, cfg_l.nframes)
+    short_l = dataclasses.replace(cfg_l, nsteps=200, nframes=0)
+    kern_l, _ = simulate(eps_l, mu_l, short_l)
+    plain_l, _ = simulate(eps_l.astype(np.float64), mu_l.astype(np.float64),
+                          dataclasses.replace(short_l, backend="torch", dtype=torch.float64))
+    torch.cuda.synchronize()
+    errs_l, abs_err = against_plain(kern_l, plain_l, f"{limit}^2 200-step, K1 resident")
+    print(f"   {limit}^2 auto -> fused, resident plan "
+          f"{bench_fused.resident_plan(limit, limit, dev)}: {main_launches} launches for "
+          f"{cfg_l.nsteps} steps in {cfg_l.nframes} frames; 200 steps vs float64: " +
+          ", ".join(f"{k} {v:.3e}" for k, v in errs_l.items()))
+    del fields_l, snaps_l, kern_l, plain_l
+
+    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["fdtd", "--size", "200", "--steps", "1000", "--frames", "200",
+                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_launches = fdtd_fused.launches
+    if (cli_launches, fdtd_fused.resident_launches, fdtd_ttiled.launches) != (200, 200, 0):
+        raise AssertionError(f"the CLI's default rollout: {cli_launches} K1 launches "
+                             f"({fdtd_fused.resident_launches} resident), "
+                             f"{fdtd_ttiled.launches} K2; expected 200 resident launches")
+    m = re.search(r"^max \|Ez\| = (\S+)$", printed.getvalue(), re.M)
+    if m is None or not 0.0 < float(m.group(1)) < float("inf"):
+        raise AssertionError(f"the CLI printed no finite non-zero max |Ez|: "
+                             f"{printed.getvalue()!r}")
+    vac = np.full((200, 200), constants.EPSILON_0, np.float32), np.full(
+        (200, 200), constants.MU_0, np.float32)
+    cfg_c = FDTDConfig(dt=DT, dx=DX, nsteps=200, source_xy=(100, 100), source_fc=FC,
+                       nframes=40, backend="auto", device="cuda")
+    kern_c, snaps_c = simulate(*vac, cfg_c)
+    plain_c, plain_snaps_c = simulate(*(a.astype(np.float64) for a in vac),
+                                      dataclasses.replace(cfg_c, backend="torch",
+                                                          dtype=torch.float64))
+    torch.cuda.synchronize()
+    errs_c, _ = against_plain(kern_c, plain_c, "200^2 200-step in 5-step frames, K1 resident")
+    if not rel_err(snaps_c[-1], plain_snaps_c[-1]) <= TOL:
+        raise AssertionError("200^2: the last frame differs from the float64 plain path's")
+    done(t0, f"CLI fdtd --size 200 --steps 1000 --frames 200: {cli_launches} resident "
+             f"launches, {printed.getvalue().strip().splitlines()[-1]}; 200 steps in 5-step "
+             f"frames vs float64: " + ", ".join(f"{k} {v:.3e}" for k, v in errs_c.items()))
+
     # -- 5. time ----------------------------------------------------------------
-    t0 = phase("5. GCells/s at 2048^2, 1000 steps per run, CUDA events")
+    t0 = phase("5. GCells/s at 2048^2 (K1 streaming, plain), 1000 steps per run, CUDA events")
     steps = 1000
     # scene already on the card: the timed runs hold no host-to-device copy
     eps_d, mu_d = torch.tensor(eps, device=dev), torch.tensor(mu, device=dev)
@@ -898,6 +1056,42 @@ def main() -> int:
         times[n_t]["bounds"] = bounds
         del ce_t, ch_t
         torch.cuda.empty_cache()
+    # K1's two modes beside K2 over the sizes and call lengths that simulate's
+    # "auto" rule was set from (tools/bench_fused.py's method), and the plain
+    # step at the resident limit
+    sizes5 = sorted({128, 200, 256, 512, 768, 1024, limit, 1536, 2048, 2304})
+    modes = {}
+    for n_t in sizes5:
+        row = bench_fused.time_modes(n_t, (5, 8, 200), 1000, dev,
+                                     plain_at=(200,) if n_t == limit else ())
+        best = {steps_t: {name: min(v) for name, v in timed_t.items()}
+                for steps_t, timed_t in row["ms_per_step"].items()}
+        picks = {steps_t: resolve_backend("auto", (n_t, n_t), "cuda", steps_t)
+                 for steps_t in best}
+        modes[n_t] = {**row, "best_ms_per_step": best, "auto": picks}
+        print(f"   {n_t}^2, resident plan {row['resident_plan']}: " + "; ".join(
+            f"{steps_t} steps a call: " + ", ".join(f"{name} {ms_t:.5f}"
+                                                    for name, ms_t in b.items()) +
+            f" ms (auto: {picks[steps_t]})" for steps_t, b in best.items()))
+        torch.cuda.empty_cache()
+    k1 = {"limit": limit, "ms": modes[limit]["best_ms_per_step"][200]["resident"],
+          "plain_ms": modes[limit]["best_ms_per_step"][200]["plain"]}
+    k1["bound_ms"], k1["bound_by"] = roofline_ms(limit, 200)
+    k1["share_of_bound"] = k1["bound_ms"] / k1["ms"]
+    k1["streaming"] = {
+        n_t: {"ms": times[n_t]["ms_per_step"]["K1"],
+              "bound_ms": roofline_ms(n_t, times[n_t]["steps_per_run"])[0],
+              "share_of_bound": roofline_ms(n_t, times[n_t]["steps_per_run"])[0]
+              / times[n_t]["ms_per_step"]["K1"],
+              "plan_bound_ms": 44 * n_t * n_t / HBM_BYTES_S * 1e3,
+              "share_of_plan_bound": 44 * n_t * n_t / HBM_BYTES_S * 1e3
+              / times[n_t]["ms_per_step"]["K1"]} for n_t in times}
+    print(f"   K1 resident at {limit}^2, 200 steps a call: {k1['ms']:.5f} ms a step, "
+          f"{k1['share_of_bound']:.4f} of its {k1['bound_ms']:.6f} ms roofline "
+          f"({k1['bound_by']}); plain {k1['plain_ms']:.5f}. K1 streaming: " + "; ".join(
+              f"{n_t}^2 {v['ms']:.5f} ms, {v['share_of_bound']:.4f} of the roofline, "
+              f"{v['share_of_plan_bound']:.3f} of its plan's {v['plan_bound_ms']:.4f} ms"
+              for n_t, v in k1["streaming"].items()))
     done(t0)
     # free the FDTD fields before the FDFD phases read peak device memory
     for d in big.values():
@@ -912,11 +1106,17 @@ def main() -> int:
         "source": "fdtd2d_tpu_torch/ops/csrc/fdtd_fused.cu",
         "replaces": "fdtd2d_tpu/ops/pallas_fdtd.py:42",
         "launches": main_launches, "max_abs_err": abs_err,
-        "ms": step_ms(kernel_gcells), "plain_ms": step_ms(plain_gcells),
-        "bound_ms": roofline_ms(N, steps)[0], "bound_by": roofline_ms(N, steps)[1],
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "share_of_bound": k1["share_of_bound"],
         "library_ms": None,
-        "ms_unit": "per leapfrog step at 2048x2048, float32 (3 launches); no single "
-                   "PyTorch call computes a leapfrog step",
+        "ms_unit": f"per leapfrog step at {limit}x{limit}, float32, resident mode, 200 steps "
+                   f"a call (one cooperative launch a call); launches: simulate(auto), 2000 "
+                   f"steps in 10 frames; no single PyTorch call computes a leapfrog step",
+        "cli_200_launches": cli_launches,
+        "streaming": {"launches_2048_2000_steps": streaming_launches,
+                      "max_abs_err_2048_200_steps": streaming_abs_err,
+                      "ms_simulate_2048": step_ms(kernel_gcells),
+                      "plain_ms_simulate_2048": step_ms(plain_gcells), **k1["streaming"]},
     }, {
         "name": "fdtd_ttiled (K2)", "route": "cuda",
         "source": "fdtd2d_tpu_torch/ops/csrc/fdtd_ttiled.cu",
@@ -941,6 +1141,13 @@ def main() -> int:
         "card": info["name"], "power_limit": info["power_limit"],
         "edge_case_worst_rel_err": worst, "edge_case_least_cover": least_cover,
         "rel_err_2048_200": errs,
+    }}))
+    print(json.dumps({"fused": {
+        "card": info["name"], "power_limit": info["power_limit"], "device_numbers": numbers,
+        "resident_limit": limit, "k2_launches_auto_2048": k2_launches_2048,
+        "k2_equals_k1_2048_2000_steps": k2_equals_k1,
+        "rel_err_limit_200": errs_l, "rel_err_200_in_5_step_frames": errs_c,
+        "modes": modes,
     }}))
     print(json.dumps({"ttiled": {
         "card": info["name"], "power_limit": info["power_limit"],

@@ -23,7 +23,7 @@ from fdtd2d_tpu_torch import constants
 
 
 def grid_init(rows: int, cols: int, dtype=torch.float32,
-              device="cpu") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              device="cuda") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Zero-initialized (Ez, Hx, Hy) fields on a staggered Yee grid."""
     return (
         torch.zeros((rows, cols), dtype=dtype, device=device),
@@ -50,7 +50,7 @@ class Scene:
 
     @staticmethod
     def vacuum(rows: int, cols: int, dx: float, dtype=torch.float32,
-               device="cpu") -> "Scene":
+               device="cuda") -> "Scene":
         return Scene(
             eps=torch.full((rows, cols), constants.EPSILON_0, dtype=dtype, device=device),
             mu=torch.full((rows, cols), constants.MU_0, dtype=dtype, device=device),
@@ -60,7 +60,7 @@ class Scene:
     @staticmethod
     def from_image(path: "str | None", rows: int, cols: int, dx: float,
                    black_point: float = 10.0, dtype=torch.float32,
-                   device="cpu") -> "Scene":
+                   device="cuda") -> "Scene":
         """Scene from a grayscale structure image (black -> black_point*eps0,
         white -> eps0; LANCZOS resize). ``path=None`` gives vacuum."""
         from fdtd2d_tpu_torch.core.materials import material_init

@@ -8,16 +8,31 @@ package's name for the same path:
 - ``"torch"``  (JAX ``"jax"``)    — the plain step as torch ops, on any device
                                     and dtype (fdtd/step.py).
 - ``"fused"``  (JAX ``"pallas"``) — the K1 CUDA kernel, float32
-                                    (ops/fdtd_fused.py); CPU tensors take its
+                                    (ops/fdtd_fused.py): its resident mode
+                                    (the state in the SMs for a whole call)
+                                    where the grid fits the card, else its
+                                    streaming mode; CPU tensors take its
                                     plain version.
 - ``"ttiled"`` (JAX ``"ttiled"``) — the temporally tiled K2 CUDA kernel, K
                                     steps per pass over 2D tiles, float32
                                     (ops/fdtd_ttiled.py); CPU tensors take its
                                     tile emulation.
-- ``"auto"``   — ``"torch"`` on the CPU. On a CUDA device the JAX package's
-                 rule: ``"fused"`` up to (2048+256)^2 cells with both sides
-                 >= 16, else ``"ttiled"`` where K2's planner admits the grid,
-                 else it raises (never the plain step on the card).
+- ``"auto"``   — ``"torch"`` on the CPU. On a CUDA device, for grids of at
+                 least 16 cells a side, what was fastest on an H100 (PERF.md
+                 section 6, the table of ``tools/bench_fused.py``):
+                 ``"fused"`` where K1's resident mode holds the grid in an
+                 H100's SMs (squares up to 1034^2); past that ``"ttiled"``
+                 where K2's planner admits the grid, except that calls of
+                 fewer than ``SHORT_CALL_STEPS`` steps (frames a few steps
+                 apart) on grids up to ``STREAMING_MAX_CELLS`` go to
+                 ``"fused"``, whose streaming mode was ahead there; grids K2
+                 does not admit go to ``"fused"`` too (its streaming mode
+                 takes any grid). Never the plain step on the card. This
+                 departs from the JAX package, which gives its on-chip kernel
+                 every grid up to (2048+256)^2 whatever the call's length: on
+                 this card the state stays on chip only up to about a million
+                 cells, and past that K2 is several times faster than K1
+                 streaming from device memory.
 
 The source is a scalar amplitude added at one node after each step, at
 global step ``offset + i``.
@@ -26,7 +41,7 @@ global step ``offset + i``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,11 +52,11 @@ from fdtd2d_tpu_torch.fdtd.step import multistep, precompute_coefficients
 from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
 
 BACKENDS = ("auto", "torch", "fused", "ttiled")
-# Largest grid "auto" gives K1: the JAX package's limit for its VMEM-resident
-# kernel (fdtd2d_tpu/fdtd/simulate.py:35), kept so both packages pick the
-# same path. Whether K2 beats K1 below it on this card is PERF.md's open
-# question.
-FUSED_MAX_CELLS = (2048 + 256) * (2048 + 256)
+# "auto" past K1's resident limit, as timed on an H100 (PERF.md section 6): K2
+# wins from this many steps a call on; below it K1's streaming mode did, on
+# grids up to this many cells
+SHORT_CALL_STEPS = 8
+STREAMING_MAX_CELLS = 2304 * 2304
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +74,11 @@ class FDTDConfig:
     device: str = "cuda"
 
 
-def resolve_backend(backend: str, shape: Tuple[int, int], device) -> str:
-    """The backend that ``backend`` names for a grid of ``shape`` on ``device``."""
+def resolve_backend(backend: str, shape: Tuple[int, int], device,
+                    steps_per_call: Optional[int] = None) -> str:
+    """The backend that ``backend`` names for a grid of ``shape`` on
+    ``device``; ``steps_per_call`` is the number of steps one kernel call
+    advances (a frame's steps), None for a long call."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend != "auto":
@@ -68,27 +86,36 @@ def resolve_backend(backend: str, shape: Tuple[int, int], device) -> str:
     device = torch.device(device)
     if device.type == "cpu":
         return "torch"
-    if device.type == "cuda" and min(shape) >= fdtd_fused.MIN_SIDE:
-        if shape[0] * shape[1] <= FUSED_MAX_CELLS:
-            return "fused"
-        try:
-            fdtd_ttiled.pick_sweep_depth(*shape)
-            return "ttiled"
-        except ValueError:
-            pass
-    raise ValueError(f"backend 'auto' has no kernel for a {shape} grid on {device}")
+    if device.type != "cuda" or min(shape) < fdtd_fused.MIN_SIDE:
+        raise ValueError(f"backend 'auto' has no kernel for a {shape} grid on {device}")
+    # the rule is that of the card it was measured on, whatever card runs
+    if _admits(fdtd_fused.plan_resident, *shape, *fdtd_fused.H100):
+        return "fused"
+    short = steps_per_call is not None and steps_per_call < SHORT_CALL_STEPS
+    if short and shape[0] * shape[1] <= STREAMING_MAX_CELLS:
+        return "fused"
+    return "ttiled" if _admits(fdtd_ttiled.pick_sweep_depth, *shape) else "fused"
+
+
+def _admits(planner, *args) -> bool:
+    try:
+        planner(*args)
+    except ValueError:
+        return False
+    return True
 
 
 def _advance(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy, nsteps: int,
-             source_kind: str, step_offset: int, backend: str):
+             source_kind: str, step_offset: int, backend: str, amps=None):
     """Advance ``nsteps`` steps from global step ``step_offset``. The
     ``"torch"`` backend updates the fields in place; the kernels return new
-    tensors."""
-    if backend in ("fused", "ttiled"):
-        run = (fdtd_fused.fdtd_multistep_fused if backend == "fused"
-               else fdtd_ttiled.fdtd_multistep_ttiled)
-        return run(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy, nsteps, source_kind,
-                   step_offset)
+    tensors. ``"fused"`` takes and returns the padded layout, ``ch`` too, and
+    takes the call's source amplitudes where the caller has them."""
+    args = (Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy, nsteps, source_kind, step_offset)
+    if backend == "fused":
+        return fdtd_fused.advance_padded(*args, amps=amps)
+    if backend == "ttiled":
+        return fdtd_ttiled.fdtd_multistep_ttiled(*args)
     amps = source_amplitudes(source_kind, step_offset, nsteps, dt, fc,
                              Ez.dtype, Ez.device)
     return multistep(Ez, Hx, Hy, ce, ch, coef, amps, sx, sy)
@@ -128,17 +155,32 @@ def simulate(eps, mu, config: FDTDConfig, state=None):
     dt = torch.tensor(config.dt, dtype=dtype, device=device)
     fc = torch.tensor(config.source_fc, dtype=dtype, device=device)
     sx, sy = config.source_xy
-    backend = resolve_backend(config.backend, (rows, cols), device)
-
-    def advance(fields, n, offset):
-        return _advance(*fields, ce, ch, coef, dt, fc, sx, sy, n,
-                        config.source_kind, offset, backend)
+    steps_per_frame = max(config.nsteps // max(config.nframes, 1), 1)
+    backend = resolve_backend(config.backend, (rows, cols), device, steps_per_frame)
 
     fields = (Ez, Hx, Hy)
-    if config.nframes <= 0:
-        return advance(fields, config.nsteps, 0), None
+    unpad = backend == "fused" and not config.padded
+    if backend == "fused":
+        # K1 works on the padded layout: the state and ch are padded once and
+        # stay padded across the frames; the phantom cells go at the end
+        ch = fdtd_fused.pad_field(ch, rows, cols)
+        fields = tuple(fdtd_fused.pad_field(f, rows, cols) for f in fields)
+    # one computation of the source for all frames of a float32 K1 rollout on
+    # the card: a frame of a few steps otherwise pays it again every call
+    amps = (source_amplitudes(config.source_kind, 0, config.nsteps, dt, fc, dtype, device)
+            if backend == "fused" and device.type == "cuda" and dtype == torch.float32
+            else None)
 
-    steps_per_frame = max(config.nsteps // config.nframes, 1)
+    def advance(fields, n, offset):
+        return _advance(*fields, ce, ch, coef, dt, fc, sx, sy, n, config.source_kind, offset,
+                        backend, None if amps is None else amps[offset : offset + n])
+
+    def finish(fields):
+        return fdtd_fused.unpad_state(*fields) if unpad else fields
+
+    if config.nframes <= 0:
+        return finish(advance(fields, config.nsteps, 0)), None
+
     nframes = config.nsteps // steps_per_frame
     snaps = torch.empty((nframes, rows, cols), dtype=dtype, device=device)
     for k in range(nframes):
@@ -147,4 +189,4 @@ def simulate(eps, mu, config: FDTDConfig, state=None):
     remainder = config.nsteps - nframes * steps_per_frame
     if remainder > 0:
         fields = advance(fields, remainder, nframes * steps_per_frame)
-    return fields, snaps
+    return finish(fields), snaps

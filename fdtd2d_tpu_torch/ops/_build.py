@@ -98,10 +98,21 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fdtd_fused_run.argtypes = [p, p, p, p, p, p, p,   # ez hx hy ce ch amp strips
+        lib.fdtd_fused_run.argtypes = [p, p, p, p, p, p,      # ez hx hy ce ch amp
                                        i, i, i, i, i,         # N M nsteps sx sy
                                        f, p]                  # coef stream
         lib.fdtd_fused_run.restype = i
+        lib.fdtd_fused_resident_run.argtypes = [
+            p, p, p, p, p, p,          # ez hx hy (inputs) ce ch amp
+            p, p, p, p, p,             # ez hx hy (outputs) rows cols
+            ctypes.c_uint,             # base
+            i, i, i, i, i, i, i, i,    # N M nth ntw variant nsteps sx sy
+            f, p]                      # coef stream
+        lib.fdtd_fused_resident_run.restype = i
+        lib.fdtd_fused_resident_layout.argtypes = [i, ctypes.POINTER(i)]  # variant out[7]
+        lib.fdtd_fused_resident_layout.restype = i
+        lib.fdtd_device_numbers.argtypes = [ctypes.POINTER(i)]            # out[3]
+        lib.fdtd_device_numbers.restype = i
         lib.fdtd_ttiled_run.argtypes = [p, p, p, p, p, p,     # ez hx hy: a, then b
                                         p, p, p, p, i, p,     # ce ch amp tiles n_tiles counters
                                         i, i, i,              # N M ldg

@@ -17,8 +17,9 @@ namespace fdtd {
 constexpr int kBand = 5;            // Mur band width (MUR_BAND)
 constexpr int kStrip = kBand + 1;   // pre-step Ez values a band cell chain reads
 
-// The three cell updates on values, for callers that keep the fields in
-// registers (fdtd_ttiled.cu's interior body). The memory forms below are
+// The cell updates on values, for callers that keep the fields in registers
+// (fdtd_ttiled.cu's interior body, fdtd_fused.cu's resident kernel and band
+// chains). The memory forms below are
 // written with them, so every kernel computes each cell with one expression
 // and nvcc contracts it into the same FMAs: a cell's value does not depend
 // on which body or tile computed it. c is ch (H) or ce (Ez) at the cell.
@@ -33,6 +34,14 @@ __device__ __forceinline__ float ez_next(float ez, float c, float hy, float hy_l
   const float curl = (hy - hy_left) - (hx - hx_up);
   return ez + curl * c;
 }
+
+// One Mur band cell on values: p_in and c_in are the pre-step and current Ez
+// of the next cell inward, p_self the pre-step Ez of the cell itself.
+__device__ __forceinline__ float mur_next(float p_in, float c_in, float p_self, float coef) {
+  return p_in + coef * (c_in - p_self);
+}
+// One corner cell on values: the mean of its two inward neighbours.
+__device__ __forceinline__ float corner_mean(float a, float b) { return (a + b) * 0.5f; }
 
 // H update of the cell at index k, which has a row below it and a column to
 // its right (domain 0 <= i < N-1, 0 <= j < M-1); c is ch at the cell.
@@ -72,7 +81,7 @@ __device__ __forceinline__ void mur_chain(float* e, int es, const float* p,
   }
 #pragma unroll
   for (int s = 0; s < kBand; ++s) {
-    e[s * es] = prev[s + 1] + coef * (cur[s + 1] - prev[s]);
+    e[s * es] = mur_next(prev[s + 1], cur[s + 1], prev[s], coef);
   }
 }
 
@@ -85,7 +94,7 @@ __device__ __forceinline__ void mur_chain(float* e, int es, const float* p,
 // must all happen before any cell of the corner is written.
 __device__ __forceinline__ float corner_value(const float* c, int rs, int cs,
                                               int a, int b) {
-  return (c[a * rs + (b + 1) * cs] + c[(a + 1) * rs + b * cs]) * 0.5f;
+  return corner_mean(c[a * rs + (b + 1) * cs], c[(a + 1) * rs + b * cs]);
 }
 
 }  // namespace fdtd

@@ -76,7 +76,7 @@ def fdm_preconditioner(
     Nx: int, Ny: int, dx: float, dy: float, omega: float,
     pml_thickness: int, sigma_max: float = 2.0, m: int = 3,
     eps_ref: float = constants.EPSILON_0, mu_ref: float = constants.MU_0,
-    dtype=torch.complex64, device="cpu",
+    dtype=torch.complex64, device="cuda",
 ) -> FDMPreconditioner:
     """Build M^{-1} (exact for the uniform-medium UPML operator). Host-side
     one-time eigendecomposition, cached per parameter set."""

@@ -134,7 +134,7 @@ def _real_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def make_operator(eps, mu, dx, dy, omega, pml_thickness: int = 40,
                   sigma_max: float = 2.0, m: int = 3,
-                  dtype=torch.complex64, device="cpu") -> HelmholtzOperator:
+                  dtype=torch.complex64, device="cuda") -> HelmholtzOperator:
     """Build the matrix-free operator (defaults match reference fdfd.py:14).
     ``eps``/``mu`` are numpy arrays or tensors; ``1/mu`` is taken in their
     own precision before the cast, as the JAX package does."""

@@ -22,7 +22,7 @@ import torch
 class Timer:
     """``with Timer(device) as t: ...``; ``t.seconds`` afterwards."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self._device = torch.device(device)
         self.seconds = 0.0
 

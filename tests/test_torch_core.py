@@ -36,7 +36,7 @@ def test_scene_from_image_matches_jax(tmp_path, with_image):
         path = str(tmp_path / "structure.png")
         Image.fromarray(rng.integers(0, 256, (37, 29), dtype=np.uint8)).save(path)
     ours = grid.Scene.from_image(path, 24, 20, dx=1e-4, black_point=3.0,
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     ref = jax_grid.Scene.from_image(path, 24, 20, dx=1e-4, black_point=3.0,
                                     dtype=jnp.float64)
     assert ours.shape == ref.shape == (24, 20) and ours.dx == ref.dx
@@ -45,7 +45,7 @@ def test_scene_from_image_matches_jax(tmp_path, with_image):
 
 
 def test_scene_vacuum_and_point_source_match_jax():
-    ours = grid.Scene.vacuum(12, 17, 1e-4)
+    ours = grid.Scene.vacuum(12, 17, 1e-4, device="cpu")
     ref = jax_grid.Scene.vacuum(12, 17, 1e-4)
     assert ours.eps.dtype == torch.float32
     np.testing.assert_array_equal(ours.eps.numpy(), np.asarray(ref.eps))
@@ -69,7 +69,7 @@ def test_guards_are_copied():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_grid_init_shapes(dtype):
-    Ez, Hx, Hy = grid.grid_init(20, 33, dtype=dtype)
+    Ez, Hx, Hy = grid.grid_init(20, 33, dtype=dtype, device="cpu")
     assert (Ez.shape, Hx.shape, Hy.shape) == ((20, 33), (20, 32), (19, 33))
     assert all(t.dtype == dtype and not t.any() for t in (Ez, Hx, Hy))
 

@@ -1,5 +1,5 @@
-"""K1, K2 and K3 mode on the card: the CUDA kernels against their plain
-versions; and the FDFD solvers on the card against complex128 on the CPU.
+"""K1 (both modes), K2 and K3 mode on the card: the CUDA kernels against
+their plain versions; and the FDFD solvers on the card against complex128 on the CPU.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -58,9 +58,12 @@ def boundary_cover(Ez, b=MUR_BAND):
 @pytest.mark.parametrize("source", [(30, 25), (6, 8)])
 @pytest.mark.parametrize("kind", ["ricker", "sinusoidal"])
 def test_kernel_matches_plain_float64(dev, start, source, kind):
-    """An odd grid with a random medium, one run and two chunks. The float64
-    plain run takes the kernel's float32 coefficients and state; the kernel
-    differs from it by float32 rounding (FMA contraction, expf) only.
+    """An odd grid with a random medium, one run and two chunks, in K1's
+    streaming mode and in its resident mode (the planner's 2 x 2 tiles and a
+    forced 5 x 4 grid, whose seams cross every Mur band). The float64 plain
+    run takes the kernel's float32 coefficients and state; the kernel differs
+    from it by float32 rounding (FMA contraction, expf) only. Chunked equals
+    single and resident equals streaming bit for bit.
 
     From a zero state the wave spreads about 18 cells in 120 steps, which
     checks the source but leaves most of the Mur bands near zero. The random
@@ -69,48 +72,88 @@ def test_kernel_matches_plain_float64(dev, start, source, kind):
     tolerance) and in the cells the step never writes."""
     rows, cols = 61, 47
     nsteps = 120 if start == "zero" else 60
-    rng = np.random.default_rng(0)
-    eps = constants.EPSILON_0 * (1.0 + 3.0 * rng.random((rows, cols)))
-    mu = np.full((rows, cols), constants.MU_0)
-    ce, ch, coef = precompute_coefficients(torch.tensor(eps, device=dev),
-                                           torch.tensor(mu, device=dev), DT, DX)
-    if start == "zero":
-        state = grid_init(rows, cols, torch.float32, dev)
-    else:
-        state = tuple(torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
-                                   device=dev) / scale
-                      for shape, scale in (((rows, cols), 1.0), ((rows, cols - 1), Z0),
-                                           ((rows - 1, cols), Z0)))
-
-    before = fdtd_fused.launches
-    one = fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, DT, FC,
-                                          *source, nsteps, kind, 0)
-    two = fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, DT, FC,
-                                          *source, 25, kind, 0)
-    two = fdtd_fused.fdtd_multistep_fused(*two, ce, ch, coef, DT, FC, *source,
-                                          nsteps - 25, kind, 25)
+    (ce, ch, coef), state = _medium_and_state(dev, rows, cols, start)
     plain = fdtd_fused.fdtd_multistep_fused_reference(
         *(f.double() for f in state), ce.double(), ch.double(), coef.double(), DT, FC,
         *source, nsteps, kind, 0)
-    torch.cuda.synchronize()
-    assert fdtd_fused.launches - before == 3 * 2 * nsteps
     if start == "random":
         assert boundary_cover(plain[0]) >= 1e-3
-    for k, c, p in zip(one, two, plain):
-        assert k.shape == p.shape and torch.equal(k, c)
-        err = float((k.double() - p).abs().max() / p.abs().max())
-        assert err <= 1e-5, f"relative error {err:.3e}"
+    streaming = None
+    for mode, tiles in (("streaming", None), ("resident", None), ("resident", (5, 4))):
+        def run(fields, n, offset):
+            return fdtd_fused.fdtd_multistep_fused(*fields, ce, ch, coef, DT, FC, *source, n,
+                                                   kind, offset, mode=mode, tiles=tiles)
+
+        before = fdtd_fused.launches, fdtd_fused.resident_launches
+        one = run(state, nsteps, 0)
+        two = run(run(state, 25, 0), nsteps - 25, 25)
+        torch.cuda.synchronize()
+        counted = fdtd_fused.launches - before[0], fdtd_fused.resident_launches - before[1]
+        assert counted == ((3, 3) if mode == "resident" else (2 * 2 * nsteps, 0))
+        streaming = streaming or one
+        for k, c, s, p in zip(one, two, streaming, plain):
+            assert k.shape == p.shape and torch.equal(k, c) and torch.equal(k, s)
+            err = float((k.double() - p).abs().max() / p.abs().max())
+            assert err <= 1e-5, f"{mode} {tiles}: relative error {err:.3e}"
+
+
+@pytest.mark.parametrize("n", [200, 768, 1034])
+def test_resident_modes_agree_at_size(dev, n):
+    """Each variant of the resident kernel (200^2: fields and coefficients in
+    registers; 768^2 and 1034^2, the largest an H100 holds: coefficients in
+    shared memory) at the planner's tile grid, from a random state over a
+    random medium: within 1e-5 of the float64 plain step and equal to the
+    streaming mode bit for bit; the built kernel's layout is the planner's."""
+    plan = fdtd_fused.plan_resident(n, n, *fdtd_fused.device_numbers(dev))
+    fdtd_fused._check_layout.cache_clear()
+    fdtd_fused._check_layout(plan.variant, dev)
+    (ce, ch, coef), state = _medium_and_state(dev, n, n, "random")
+    tail = (DT, FC, n - 4, n - 3, 40, "ricker", 7)
+    resident = fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, *tail, mode="resident")
+    streaming = fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, *tail, mode="streaming")
+    plain = fdtd_fused.fdtd_multistep_fused_reference(
+        *(f.double() for f in state), ce.double(), ch.double(), coef.double(), *tail)
+    assert boundary_cover(plain[0]) >= 1e-3
+    for r, s, p in zip(resident, streaming, plain):
+        assert torch.equal(r, s)
+        assert float((r.double() - p).abs().max() / p.abs().max()) <= 1e-5
+
+
+def test_refused_cooperative_launch_raises(dev):
+    """More tiles than the card holds resident: the planner refuses the
+    grid, and a launch forced past it is refused by the runtime and raises;
+    the next launch on the same device runs."""
+    n = 512
+    (ce, ch, coef), state = _medium_and_state(dev, n, n, "random")
+    with pytest.raises(ValueError, match="beyond the resident mode"):
+        fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, DT, FC, 9, 9, 3, "ricker", 0,
+                                        mode="resident", tiles=(32, 32))
+    padded = fdtd_fused.pad_state(*state)
+    chp = fdtd_fused.pad_field(ch, n, n)
+    amps = torch.zeros(3, device=dev)
+    too_many = fdtd_fused.ResidentPlan(fdtd_fused.VARIANTS[0], 32, 32)
+    before = fdtd_fused.launches
+    with pytest.raises(RuntimeError, match="refused 1024 blocks"):
+        fdtd_fused.launch_resident(*padded, ce, chp, amps, 9, 9, float(coef), too_many)
+    assert fdtd_fused.launches == before
+    good = fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, DT, FC, 9, 9, 3, "ricker", 0,
+                                           mode="resident")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(f).all()) for f in good)
 
 
 def test_simulate_auto_uses_kernel(dev):
+    """A small grid with frames goes to K1's resident mode: one cooperative
+    launch a frame, the padded state kept across the frames."""
     N = 64
     eps = np.full((N, N), constants.EPSILON_0)
     mu = np.full((N, N), constants.MU_0)
     cfg = FDTDConfig(dt=DT, dx=DX, nsteps=40, source_xy=(20, 33), source_fc=FC,
                      nframes=4, device="cuda")
-    before = fdtd_fused.launches
+    before = fdtd_fused.launches, fdtd_fused.resident_launches
     (Ez, Hx, Hy), snaps = simulate(eps, mu, cfg)
-    assert fdtd_fused.launches - before == 3 * 40
+    assert (fdtd_fused.launches - before[0], fdtd_fused.resident_launches - before[1]) == (4, 4)
+    assert tuple(Hx.shape) == (N, N - 1) and tuple(Hy.shape) == (N - 1, N)
     plain, plain_snaps = simulate(eps, mu, dataclasses.replace(cfg, backend="torch",
                                                                dtype=torch.float64))
     for k, p in zip((Ez, Hx, Hy, snaps), (*plain, plain_snaps)):
@@ -274,7 +317,7 @@ def test_direct_solver_on_card_matches_cpu_complex128(dev):
     x, trace = solver.solve(src, refine_target=1e-9)
     assert x.is_cuda and x.dtype == torch.complex64
     assert trace[-2] <= 1e-9 and trace[-1] < 5e-5
-    op = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex128)
+    op = make_operator(eps, mu, dx, dx, omega, dtype=torch.complex128, device="cpu")
     want = solve_direct(op, torch.as_tensor(-1j * omega * src))
     assert float((x.cpu().to(torch.complex128) - want).abs().max() / want.abs().max()) <= 1e-5
 
@@ -297,6 +340,7 @@ def test_fgmres_on_card_matches_cpu_complex128(dev):
     res = solve_fdfd(op, torch.tensor(b, device=dev), tol=1e-5, maxiter=400, restart=20)
     assert res.x.is_cuda and res.relative_residual <= 1e-5 and res.iterations < 400
     want = solve_direct(make_operator(eps, mu, dx, dx, omega, pml_thickness=20,
-                                      dtype=torch.complex128), torch.as_tensor(b))
+                                      dtype=torch.complex128, device="cpu"),
+                        torch.as_tensor(b))
     assert float((res.x.cpu().to(torch.complex128) - want).abs().max()
                  / want.abs().max()) <= 1e-4

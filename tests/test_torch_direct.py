@@ -47,7 +47,8 @@ def _hard_scene(N, seed=3):
 
 def _op(N, omega, pml, dtype=torch.complex128):
     eps, mu, src = _hard_scene(N)
-    return make_operator(eps, mu, DX, DX, omega, pml_thickness=pml, dtype=dtype), src
+    return make_operator(eps, mu, DX, DX, omega, pml_thickness=pml, dtype=dtype,
+                         device="cpu"), src
 
 
 def _residual(op, x, b):
@@ -62,7 +63,8 @@ def _rel(got, want):
 def test_solve_direct_matches_jax_and_spsolve():
     N, omega = 96, 17e9
     eps, mu, src = _hard_scene(N)
-    op = make_operator(eps, mu, DX, DX, omega, pml_thickness=16, dtype=torch.complex128)
+    op = make_operator(eps, mu, DX, DX, omega, pml_thickness=16, dtype=torch.complex128,
+                       device="cpu")
     b = -1j * omega * src
     x = solve_direct(op, torch.as_tensor(b))
     assert x.shape == (N, N) and x.dtype == torch.complex128
@@ -115,7 +117,8 @@ def test_checkpoint_stride_must_divide_rows():
     with pytest.raises(ValueError, match="divide the stride"):
         factor_checkpointed(op, stride=5)
     with pytest.raises(ValueError, match="even N"):
-        factor_stacked(make_operator(*_hard_scene(47)[:2], DX, DX, 17e9, pml_thickness=8))
+        factor_stacked(make_operator(*_hard_scene(47)[:2], DX, DX, 17e9, pml_thickness=8,
+                                     device="cpu"))
 
 
 def test_direct_solver_c64_refined_hard_scene():
@@ -196,7 +199,8 @@ def test_refine_stagnation_stop_matches_jax():
     N, omega = 32, 17e9
     eps, mu, src = _hard_scene(N)
     b = -1j * omega * src
-    op64 = make_operator(eps, mu, DX, DX, omega, pml_thickness=8, dtype=torch.complex128)
+    op64 = make_operator(eps, mu, DX, DX, omega, pml_thickness=8, dtype=torch.complex128,
+                         device="cpu")
     out = refine(op64, torch.as_tensor(b), lambda r: 0.5 * torch.zeros_like(r), target=1e-9)
     jout = jax_refine(make_operator_f64(eps, mu, DX, DX, omega, 8), split_from_numpy(b),
                       lambda r: 0.5 * jnp.zeros_like(r), target=1e-9)
@@ -206,7 +210,7 @@ def test_refine_stagnation_stop_matches_jax():
 
 
 def test_refine_zero_rhs_returns_at_once():
-    op64 = make_operator(*_hard_scene(16)[:2], DX, DX, 17e9, pml_thickness=4,
+    op64 = make_operator(*_hard_scene(16)[:2], DX, DX, 17e9, pml_thickness=4, device="cpu",
                          dtype=torch.complex128)
     out = refine(op64, torch.zeros((16, 16), dtype=torch.complex128),
                  lambda r: pytest.fail("inner solve called for b = 0"))

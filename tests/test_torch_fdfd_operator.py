@@ -57,7 +57,8 @@ def _rel(got, want):
 
 def _ops(eps, mu, pml, dtype=torch.complex128):
     jdtype = jnp.complex128 if dtype == torch.complex128 else jnp.complex64
-    return (make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=pml, dtype=dtype),
+    return (make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=pml, dtype=dtype,
+                          device="cpu"),
             jax_make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=pml, dtype=jdtype))
 
 
@@ -89,8 +90,10 @@ def test_complex64_matches_complex128():
     """c64 operator: real fields in float32, apply and diagonal within 1e-5."""
     N = 48
     eps, mu = _scene(N, seed=4)
-    op64 = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=10, dtype=torch.complex128)
-    op32 = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=10, dtype=torch.complex64)
+    op64 = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=10, dtype=torch.complex128,
+                         device="cpu")
+    op32 = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=10, dtype=torch.complex64,
+                         device="cpu")
     assert op32.eps.dtype == op32.omega.dtype == op32.inv_2dx.dtype == torch.float32
     assert op32.dtype == torch.complex64
     v = torch.as_tensor(_field(N))

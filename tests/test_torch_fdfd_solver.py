@@ -64,7 +64,7 @@ def test_fgmres_matches_jax_and_spsolve():
     b = -1j * OMEGA * source
     kw = dict(tol=1e-9, maxiter=200, restart=40)
     res = solve_fdfd(make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=20,
-                                   dtype=torch.complex128), torch.as_tensor(b),
+                                   dtype=torch.complex128, device="cpu"), torch.as_tensor(b),
                      preconditioner="fdm", **kw)
     jop = jax_make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=20, dtype=jnp.complex128)
     jres = jax_fgmres(jop.apply, jnp.asarray(b), jax_fdm_for(jop), **kw)
@@ -85,7 +85,7 @@ def test_fgmres_complex64_matches_jax_iterations():
     eps[20:40, 16:32] *= 2.0
     source = np.zeros((N, N), np.complex128)
     source[N // 2, N // 2] = -1j * OMEGA
-    op = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=12)
+    op = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=12, device="cpu")
     jop = jax_make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=12)
     out = fgmres(op.apply, torch.as_tensor(source).to(torch.complex64),
                  fdm_preconditioner_for(op), restart=20, maxiter=400, tol=1e-6)
@@ -113,7 +113,8 @@ def test_fgmres_breakdown_and_zero_rhs():
 def test_builtin_preconditioners_match_jax(name):
     N = 48
     eps, mu = _scene(N, seed=3)
-    op = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=10, dtype=torch.complex128)
+    op = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=10, dtype=torch.complex128,
+                       device="cpu")
     jop = jax_make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=10, dtype=jnp.complex128)
     ours, theirs = {"dst": (shifted_laplacian_preconditioner, jax_shifted),
                     "jacobi": (jacobi_preconditioner, jax_jacobi)}[name]
@@ -160,7 +161,7 @@ def test_run_fdfd_refined_matches_jax():
 
 @pytest.mark.parametrize("method", ["bicgstab", "gmres"])
 def test_library_methods_not_ported(method):
-    op = make_operator(*_scene(16, seed=0), DX, DX, OMEGA, pml_thickness=4)
+    op = make_operator(*_scene(16, seed=0), DX, DX, OMEGA, pml_thickness=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         solve_fdfd(op, torch.zeros((16, 16), dtype=torch.complex64), method=method)
     with pytest.raises(ValueError, match="unknown method"):
@@ -168,9 +169,11 @@ def test_library_methods_not_ported(method):
 
 
 def test_entry_points_default_to_the_card():
-    """DirectSolver and run_fdfd run on the card unless the caller asks for
-    the CPU, as FDTDConfig.device does; make_operator keeps the CPU default
-    (chip_smoke.py builds its CPU complex128 recheck operator through it)."""
+    """Every public constructor and entry point runs on the card unless the
+    caller asks for the CPU, as FDTDConfig.device does: a user who builds an
+    operator and solves on it never solves on the CPU without having asked.
+    The ``*_from_numpy`` helpers, which carry JAX parameters across for the
+    tests, keep the CPU."""
     import inspect
 
     from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
@@ -179,5 +182,14 @@ def test_entry_points_default_to_the_card():
     def default(fn):
         return inspect.signature(fn).parameters["device"].default
 
+    from fdtd2d_tpu_torch.core import grid
+    from fdtd2d_tpu_torch.ops.fdm import fdm_preconditioner
+    from fdtd2d_tpu_torch.ops.helmholtz import operator_from_numpy
+    from fdtd2d_tpu_torch.utils.metrics import Timer
+
     assert default(DirectSolver.__init__) == default(run_fdfd) == FDTDConfig.device == "cuda"
-    assert default(make_operator) == "cpu"
+    for fn in (make_operator, fdm_preconditioner, grid.grid_init, grid.Scene.vacuum,
+               grid.Scene.from_image, Timer.__init__):
+        assert default(fn) == "cuda", fn
+    for fn in (grid.scene_from_numpy, grid.state_from_numpy, operator_from_numpy):
+        assert default(fn) == "cpu", fn

@@ -110,3 +110,30 @@ def test_bench_ttiled_needs_the_card(capsys):
     if not bench.torch.cuda.is_available():
         assert bench.main([]) == 1
         assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_bench_fused_needs_the_card(capsys):
+    """tools/bench_fused.py times the card only: without CUDA it prints why
+    and returns 1, before importing any checkout; its defaults are the sizes
+    and call lengths that simulate's "auto" rule was set from."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_fused", Path(__file__).resolve().parents[1] / "tools" / "bench_fused.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    args = bench.parse_args([])
+    assert args.steps == "5,8,200" and not args.check
+    assert {"128", "200", "1034", "2048", "2304"} <= set(args.sizes.split(","))
+    assert args.root == Path(spec.origin).resolve().parents[1]
+    if not bench.torch.cuda.is_available():
+        assert bench.main(["--check"]) == 1
+        assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_profile_fdtd_takes_frames():
+    """--frames cuts the profiled rollout into kernel calls of steps / frames
+    steps, as the CLI's rollouts are."""
+    args = profile_fdtd.parse_args(["--size", "200", "--steps", "1000", "--frames", "200",
+                                    "--backends", "fused,ttiled"])
+    assert (args.size, args.steps, args.frames) == (200, 1000, 200)
+    assert args.backends == ["fused", "ttiled"]
+    assert profile_fdtd.parse_args([]).frames == 0

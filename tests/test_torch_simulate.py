@@ -91,10 +91,7 @@ def test_state_handover_from_jax(padded):
 
 def test_resolve_backend():
     assert resolve_backend("auto", (64, 64), "cpu") == "torch"
-    assert resolve_backend("auto", (2048, 2048), "cuda") == "fused"
-    assert resolve_backend("auto", (2304, 2304), "cuda") == "fused"
-    assert resolve_backend("auto", (4096, 4096), "cuda") == "ttiled"
-    assert resolve_backend("auto", (8192, 8192), "cuda") == "ttiled"
+    assert resolve_backend("auto", (4096, 4096), "cpu", 5) == "torch"
     assert resolve_backend("fused", (64, 64), "cpu") == "fused"
     assert resolve_backend("ttiled", (64, 64), "cpu") == "ttiled"
     with pytest.raises(ValueError, match="no kernel"):
@@ -103,6 +100,47 @@ def test_resolve_backend():
         resolve_backend("auto", (12, 500000), "cuda")
     with pytest.raises(ValueError, match="unknown backend"):
         resolve_backend("pallas", (64, 64), "cpu")
+
+
+# The measured rule on the card (PERF.md section 6): K1 where its resident
+# mode holds the grid in an H100's SMs (squares up to 1034^2); past that K2,
+# but K1's streaming mode for calls of fewer than 8 steps on grids up to
+# 2304^2 and for grids K2's planner refuses.
+@pytest.mark.parametrize("shape,steps_per_call,want", [
+    ((16, 16), None, "fused"), ((128, 128), 5, "fused"), ((200, 200), 5, "fused"),
+    ((512, 512), 200, "fused"), ((1024, 1024), 8, "fused"),
+    ((1034, 1034), None, "fused"), ((1034, 1034), 5, "fused"),   # the resident limit
+    ((1035, 1035), None, "ttiled"), ((1034, 1035), 200, "ttiled"),
+    ((1035, 1035), 7, "fused"), ((1035, 1035), 8, "ttiled"),     # short calls: streaming
+    ((1536, 1536), 5, "fused"), ((1536, 1536), 200, "ttiled"),
+    ((2048, 2048), None, "ttiled"), ((2048, 2048), 5, "fused"), ((2048, 2048), 8, "ttiled"),
+    ((2304, 2304), 7, "fused"), ((2304, 2304), 200, "ttiled"),
+    ((2305, 2304), 5, "ttiled"), ((4096, 4096), 5, "ttiled"),    # past 2304^2: K2 always
+    ((4096, 4096), None, "ttiled"), ((8192, 8192), 200, "ttiled"),
+    ((16, 300000), None, "ttiled"), ((3001, 4999), 1, "ttiled"),
+])
+def test_resolve_backend_auto_on_the_card(shape, steps_per_call, want):
+    got = resolve_backend("auto", shape, "cuda", steps_per_call)
+    assert got == want and got != "torch"  # never the plain path on the card
+    assert resolve_backend("auto", shape, "cuda:1", steps_per_call) == want
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_simulate_fused_keeps_the_padded_state_across_frames(padded):
+    """The fused backend pads the state and ch once and keeps them padded
+    across the frames; on the CPU it runs K1's plain version, so the rollout
+    equals the torch backend's bit for bit, frames, remainder and shapes."""
+    rows, cols = 40, 52
+    eps, mu = _scene(rows, cols)
+    kw = dict(dt=DT, dx=DX, nsteps=31, source_xy=(11, 30), source_fc=FC, nframes=4,
+              padded=padded, device="cpu")
+    want, want_snaps = simulate(eps, mu, FDTDConfig(backend="torch", **kw))
+    got, got_snaps = simulate(eps, mu, FDTDConfig(backend="fused", **kw))
+    assert torch.equal(got_snaps, want_snaps)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    again, _ = simulate(eps, mu, FDTDConfig(backend="fused", **kw), state=got)
+    assert all(a.shape == g.shape for a, g in zip(again, got))
 
 
 def test_float64_plain_path_matches_oracle_tightly():

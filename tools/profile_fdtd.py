@@ -1,9 +1,12 @@
 """Device-time profile of one FDTD rollout on the GPU, with torch.profiler.
 
-    python tools/profile_fdtd.py [--size 2048] [--steps 200] [--backends fused,torch]
-                                 [--out DIR]
+    python tools/profile_fdtd.py [--size 2048] [--steps 200] [--frames 0]
+                                 [--backends fused,torch] [--out DIR]
     python tools/profile_fdtd.py --size 4096 --backends ttiled,fused
+    python tools/profile_fdtd.py --size 200 --steps 1000 --frames 200 --backends fused,ttiled
 
+``--frames n`` cuts the rollout into n frames (``simulate``'s ``nframes``), so
+that each kernel call advances ``steps / n`` steps, as the CLI's rollouts do.
 For each backend of ``--backends`` (``fused``: K1; ``ttiled``: K2; ``torch``:
 the plain path) it runs the bench scene of ``bench.py``'s fdtd rows (2048^2
 by default: a 4x dielectric block, Ricker source at the centre, fc 30 GHz,
@@ -16,12 +19,14 @@ nvidia-smi gives them:
 
 - ``wall_ms``: host clock around the profiled call, with the device
   synchronized before and after, so it includes the profiler's host cost;
+  ``wall_unprofiled_ms``: the same call once more with no profiler;
 - ``device_busy_ms``: the union of the trace's device intervals (kernels,
   memcpy, memset), so that work that overlaps counts once;
 - ``busy_share``: ``device_busy_ms / wall_ms``;
 - ``idle_gaps``: the gaps between device intervals, from the first device
   interval to the last: their count, total, and the longest five with their
   start, in microseconds from the first device interval;
+- ``device_launches``: the kernels, copies and memsets of the window;
 - ``kernels``: per kernel name, its calls, total and per-call microseconds
   (for K2 a call is one sweep of K steps), and microseconds per step
   (total / steps).
@@ -89,7 +94,8 @@ def summarize(trace_path: Path, steps: int, wall_s: float) -> dict:
     memcpy_us = sum(e["dur"] for e in device if e["cat"] != "kernel")
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
             "busy_share": busy_us / 1e3 / (wall_s * 1e3),
-            "memcpy_memset_ms": memcpy_us / 1e3, "idle_gaps": idle_gaps(intervals),
+            "memcpy_memset_ms": memcpy_us / 1e3, "device_launches": len(device),
+            "idle_gaps": idle_gaps(intervals),
             "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["total_us"]))}
 
 
@@ -106,6 +112,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--size", type=int, default=2048)
     parser.add_argument("--steps", type=int, default=200)
+    parser.add_argument("--frames", type=int, default=0)
     parser.add_argument("--backends", type=backend_list, default=["fused", "torch"])
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "profile")
     return parser.parse_args(argv)
@@ -129,15 +136,20 @@ def main(argv=None) -> int:
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for backend in args.backends:
         cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=args.steps, source_xy=(N // 2, N // 2),
-                         source_fc=30e9, backend=backend, device="cuda")
+                         source_fc=30e9, nframes=args.frames, backend=backend,
+                         device="cuda")
         state, _ = simulate(eps, mu, cfg)
         with torch.profiler.profile(activities=activities) as prof:
             with Timer(dev) as timer:
                 simulate(eps, mu, cfg, state=state)
-        trace = args.out / f"trace_{backend}_{N}.json"
+        with Timer(dev) as plain_timer:  # the same call with no profiler attached
+            simulate(eps, mu, cfg, state=state)
+        trace = args.out / f"trace_{backend}_{N}_{args.frames}.json"
         prof.export_chrome_trace(str(trace))
         summary = summarize(trace, args.steps, timer.seconds)
         print(json.dumps({"backend": backend, "size": N, "steps": args.steps,
+                          "frames": args.frames,
+                          "wall_unprofiled_ms": plain_timer.seconds * 1e3,
                           "trace": str(trace.relative_to(ROOT)) if trace.is_relative_to(ROOT)
                           else str(trace), **summary}))
     print(device_info()["nvidia_smi"])
