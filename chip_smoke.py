@@ -5,7 +5,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: a CUDA device is required (there is no CPU fallback); prints the
-   card's name and power limit as nvidia-smi reports them.
+   card's name and power limit as nvidia-smi reports them, and the cards
+   ``nvidia-smi -L`` lists.
 2. Build: compiles K1 and K2 from fdtd2d_tpu_torch/ops/csrc/ with nvcc (one
    nvcc per source, in parallel) and prints ptxas' registers and spills per
    kernel. The phase fails unless build.log holds ttiled_sweep's report
@@ -132,6 +133,38 @@ Phases, in order; any failure raises and the script exits non-zero:
 Each FDFD phase checks before it prints a time, and reads the peak device
 memory (``torch.cuda.max_memory_allocated``) after its work.
 
+17. K2's block mode (the TPU kernel's sharded mode) at small sizes, through
+    the sharded rollout with every block of the mesh on the one card
+    (tools/bench_sharded.py's ``block_parity``): the 203x157 and 400x360
+    media and random states of phases 3 and 6 cut into 2x2, 1x4, 4x1 and 3x2
+    blocks that do not divide them evenly, forced small tiles at 203x157 so
+    that seams cross bands, corners and block boundaries, the planner's
+    tiles at 400x360; thin blocks whose ghost cells hold a neighbour's Mur
+    band (64 rows over 8, 60 over 6, 44x52 over 4x4); the source on the
+    corner where four blocks meet, inside a ghost region and outside three
+    blocks' arrays; 61 steps, a multiple of no K used. The float32 kernel
+    against the float64 plain step (<= 1e-5), against its emulation in
+    float64 on the same tiles (<= 1e-5) and against single-device K2
+    (expected bit for bit; the max abs difference is printed and more than
+    1e-5 relative fails); one launch a block a sweep, counted.
+18. The sharded slice at full width (``full_size`` there): the 8192^2 bench
+    scene (bench.py:85-91, 512 steps, no frames) through
+    ``simulate_sharded(backend="auto")`` on a 2x2 and on a 4x1 mesh of
+    ``cuda:0``, and 4096^2 (2048 steps) with 8 frames on a 1D mesh of 4: the
+    block-mode counter set to 0 before and read after (every sweep of every
+    block is a launch; single-device K2's and K1's counters stay 0), fields
+    and snapshots finite and non-zero in the staggered shapes, equal to
+    single-device ``simulate(auto)`` within 1e-5 relative (the max abs
+    difference printed), 50 steps against the float64 plain step. Then ms a
+    step (CUDA events after a warm-up, in turns with the single device) of
+    the whole call and of its steady state, the host's time to enqueue a
+    step, launches and strip copies a sweep, the share of the blocks' plan
+    traffic, and the peak device memory; and the block mode's plain version
+    (the same rollout loop with the plain step on each block's array) at 8192^2
+    on 2x2 blocks. All blocks share the one card: no copy between two cards
+    is made and no scaling is measured. (Phases 17 and 18 run between
+    phases 9 and 10.)
+
 Tolerance: 1e-5 relative (max |kernel - plain| / max |plain|), the bound of
 the float64 oracle tests (tests/test_fdtd_oracle.py). The kernel and the
 plain path differ in rounding only: nvcc contracts a + b*c into FMA and
@@ -139,13 +172,15 @@ CUDA's expf differs from the plain path's exp in the last bits, both far
 inside that bound at float32.
 
 Before its last line the script prints one JSON object with each kernel's
-launches (counted in its main-path run of phase 16, K1, or 8, K2 and K3),
+launches (counted in its main-path run of phase 16, K1, 8, K2 and K3, or 18,
+K2's block mode: 8192^2 on 2x2 blocks),
 error, times, roofline bound and share of it (K1: the resident mode at the
 resident limit, its streaming mode's numbers under "streaming"; K2 and K3
 also their plan; no single PyTorch call computes a leapfrog step, so
 library_ms is null), one with the GCells/s of phase 5, one with phase 9's
 table of K1's modes, one with the times, errors, plan-traffic
-bounds and tile counts of phases 6-9,
+bounds and tile counts of phases 6-9, one with the parity and the cells of
+phases 17-18,
 one with the times, residuals and peak memory of phases 10-15, and the
 nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -159,6 +194,7 @@ import importlib.util
 import io
 import json
 import re
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -366,8 +402,6 @@ def peak_gb(dev) -> float:
 def fdfd_phases(dev) -> dict:
     """Phases 10-15: the FDFD path on the card. Returns the numbers of the
     ``{"fdfd": ...}`` line."""
-    import subprocess
-
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
@@ -579,9 +613,14 @@ def main() -> int:
     from fdtd2d_tpu_torch import cli
     from fdtd2d_tpu_torch.utils.metrics import Timer, device_info, throughput_gcells
 
-    spec = importlib.util.spec_from_file_location("bench_fused", ROOT / "tools" / "bench_fused.py")
-    bench_fused = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench_fused)  # phase 9 times K1's modes with its time_modes
+    def tool(name):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    bench_fused = tool("bench_fused")      # phase 9 times K1's modes with its time_modes
+    bench_sharded = tool("bench_sharded")  # phases 17 and 18 are its block_parity, full_size
     pkg_root = Path(fdtd2d_tpu_torch.__file__).resolve().parents[1]
     if pkg_root != ROOT:
         raise RuntimeError(f"fdtd2d_tpu_torch was imported from {pkg_root}, "
@@ -591,6 +630,8 @@ def main() -> int:
     info = device_info()
     kind = torch.cuda.get_device_name(0)
     print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+    print("   " + subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True,
+                                 check=True).stdout.strip().replace("\n", "\n   "))
     done(t0)
 
     # -- 2. build -------------------------------------------------------------
@@ -1099,6 +1140,28 @@ def main() -> int:
     del fields_t, Ez, Hx, Hy, kern, plain, k3_out, ce2, ch2, coef2, eps_d, mu_d
     torch.cuda.empty_cache()
 
+    # -- 17, 18. K2's block mode and the sharded slice ------------------------------
+    t0 = phase("17. K2 block mode vs the float64 plain step, its emulation and single-device "
+               "K2: 2x2, 1x4, 4x1, 3x2 and thin blocks on the one card")
+    block_parity = bench_sharded.block_parity(dev)
+    done(t0, f"{block_parity['cases']} cases, worst relative error " + ", ".join(
+        f"{v:.3e} vs the {k}" for k, v in block_parity["worst_rel_err"].items()) +
+        f" (<= {TOL}); max abs difference to single-device K2 "
+        f"{block_parity['max_abs_diff_to_single_device']:.3e}; each band and corner >= "
+        f"{block_parity['least_cover']:.3e} of max |Ez|")
+    t0 = phase("18. simulate_sharded(backend='auto') on meshes of cuda:0: 8192^2 on 2x2 and "
+               "4x1 blocks, 4096^2 with 8 frames on 4 row blocks")
+    sharded_cells = [bench_sharded.full_size(dev, n_s, shape_s, steps_s, frames_s)
+                     for n_s, shape_s, steps_s, frames_s in (
+                         (8192, (2, 2), 512, 0), (8192, (4, 1), 512, 0), (4096, (4,), 2048, 8))]
+    torch.cuda.empty_cache()
+    block_main = sharded_cells[0]
+    block_plain_ms = bench_sharded.plain_engine_ms(dev, 8192, (2, 2))
+    block_bound_ms, block_bound_by = roofline_ms(8192, block_main["nsteps"])
+    torch.cuda.empty_cache()
+    done(t0, f"the block mode's plain version at 8192^2 on 2x2 blocks: {block_plain_ms:.5f} ms "
+             f"a step; all blocks shared one card: no copy between two cards, no scaling")
+
     fdfd = fdfd_phases(dev)
 
     print(json.dumps({"kernels": [{
@@ -1133,6 +1196,19 @@ def main() -> int:
         "ms": times[2048]["ms_per_step"]["K3"], "plain_ms": times[2048]["ms_per_step"]["plain"],
         **roofline_entry(times[2048]["bounds"]["K3"]), "library_ms": None,
         "ms_unit": "per leapfrog step at 2048x2048, float32 (one launch a step)",
+    }, {
+        "name": "fdtd_ttiled block mode (K2, sharded mode)", "route": "cuda",
+        "source": "fdtd2d_tpu_torch/ops/csrc/fdtd_ttiled.cu",
+        "replaces": "fdtd2d_tpu/ops/pallas_fdtd_ttiled.py:70",
+        "launches": block_main["launches"], "max_abs_err": block_main["max_abs_err_float64"],
+        "ms": block_main["sharded_steady_ms_per_step"], "plain_ms": block_plain_ms,
+        "plan": block_main["plan"], "bound_ms": block_bound_ms, "bound_by": block_bound_by,
+        "share_of_bound": block_bound_ms / block_main["sharded_steady_ms_per_step"],
+        "library_ms": None,
+        "ms_unit": "per leapfrog step at 8192x8192 on 2x2 blocks of the one card, float32, "
+                   "steady state of simulate_sharded(auto) (one launch a block a sweep of K "
+                   "steps, a halo exchange of 8 strip copies a sweep); launches: 512 steps; "
+                   "plain_ms: the same rollout loop with the plain step on each block's array",
     }]}))
     print(json.dumps({"fdtd2048": {
         "k1_plan_bound_ms": 44 * N * N / HBM_BYTES_S * 1e3,
@@ -1158,6 +1234,10 @@ def main() -> int:
         "full_size": {n_b: {k: v for k, v in d.items() if k not in ("fields", "eps", "mu")}
                       for n_b, d in big.items()},
         "k3_2048_200": {"rel_err": k3_errs, "abs_err": k3_abs},
+    }}))
+    print(json.dumps({"sharded": {
+        "card": info["name"], "power_limit": info["power_limit"], "cards_used": 1,
+        "parity": block_parity, "cells": sharded_cells, "plain_ms_8192_2x2": block_plain_ms,
     }}))
     print(json.dumps({"fdfd": {"card": info["name"], "power_limit": info["power_limit"],
                                **fdfd}}))

@@ -7,12 +7,17 @@ subcommands so far):
 
 Flags and printed lines are those of ``fdtd2d fdtd`` and ``fdtd2d fdfd``
 (fdtd2d_tpu/cli.py), plus ``--device``. ``--out ""`` skips the plot.
+``--backend`` takes the port's names and the JAX CLI's: ``jax`` is
+``torch`` (the plain step) and ``pallas`` is ``fused`` (K1).
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+# the JAX CLI's names for the port's backends
+BACKEND_ALIASES = {"jax": "torch", "pallas": "fused"}
 
 
 def cmd_fdtd(args):
@@ -29,7 +34,8 @@ def cmd_fdtd(args):
     cfg = FDTDConfig(dt=args.dt, dx=scene.dx, nsteps=args.steps,
                      source_xy=(args.size // 2, args.size // 2),
                      source_fc=args.fc, nframes=args.frames,
-                     backend=args.backend, device=args.device)
+                     backend=BACKEND_ALIASES.get(args.backend, args.backend),
+                     device=args.device)
     (Ez, _, _), snaps = simulate(scene.eps, scene.mu, cfg)
     print(f"max |Ez| = {float(Ez.abs().max()):.4e}")
     if args.video and snaps is not None:
@@ -84,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--frames", type=int, default=200)
     f.add_argument("--structure", type=str, default=None)
     f.add_argument("--backend", type=str, default="auto",
-                   choices=["auto", "torch", "fused", "ttiled"])
+                   choices=["auto", "torch", "fused", "ttiled", *BACKEND_ALIASES])
     f.add_argument("--video", type=str, default=None)
     f.add_argument("--device", type=str, default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu")

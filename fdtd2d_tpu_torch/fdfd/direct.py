@@ -292,13 +292,19 @@ class DirectSolver:
     refinement, so returned traces are TRUE float64 residuals. Even grids
     factor the four sublattices stacked; odd grids one at a time.
     ``checkpointed=True`` stores W every ``stride`` rows. The compressed
-    (HODLR) and HPS factor modes are not ported yet and raise.
+    (HODLR) and HPS factor modes are not ported yet and raise; their keywords
+    (``rank``, ``leaf``, ``power_iters``, ``stacked_solve``, ``hps_leaf``)
+    are taken with the JAX package's defaults.
     """
 
     def __init__(self, eps, mu, dx, dy, omega, *, pml_thickness: int = 40,
                  sigma_max: float = 2.0, m: int = 3, dtype=torch.complex64,
                  checkpointed: bool = False, stride: int = 32,
-                 compressed: bool = False, hps: bool = False, device="cuda"):
+                 compressed: bool = False, rank: int = 20, leaf: int = 128,
+                 power_iters: int = 1, stacked_solve: bool = True,
+                 hps: bool = False, hps_leaf: int = 8, device="cuda"):
+        if sum((checkpointed, compressed, hps)) > 1:
+            raise ValueError("choose one of checkpointed/compressed/hps")
         if compressed:
             raise NotImplementedError(f"DirectSolver(compressed=True) is {_LATER}")
         if hps:

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -121,11 +121,13 @@ def solve_fdfd(
     tol: float = 1e-6,
     maxiter: int = 2000,
     restart: int = 40,
+    x0: Optional[torch.Tensor] = None,
 ) -> SolveResult:
     """Solve A x = b. ``b`` may be (Nx, Ny) or flattened; returns (Nx, Ny) x.
 
     ``preconditioner``: "fdm" (default), "dst", "jacobi", None, or any
     callable (e.g. a prebuilt :class:`~fdtd2d_tpu_torch.ops.fdm.FDMPreconditioner`).
+    ``x0``: a warm start, (Nx, Ny) or flattened; zero when None.
     """
     if method in ("bicgstab", "gmres"):
         raise NotImplementedError(
@@ -139,7 +141,9 @@ def solve_fdfd(
     elif builtin == "jacobi":
         M = jacobi_preconditioner(op)
     b2 = b.reshape(op.shape).to(op.dtype)
-    out = fgmres(op.apply, b2, M, restart=restart, maxiter=maxiter, tol=tol)
+    if x0 is not None:
+        x0 = x0.reshape(op.shape).to(op.dtype)
+    out = fgmres(op.apply, b2, M, x0=x0, restart=restart, maxiter=maxiter, tol=tol)
     res = out.relative_residual
     return SolveResult(x=out.x, relative_residual=res, converged=res < 10 * tol,
                        iterations=out.iterations)

@@ -17,8 +17,9 @@ package's name for the same path:
                                     steps per pass over 2D tiles, float32
                                     (ops/fdtd_ttiled.py); CPU tensors take its
                                     tile emulation.
-- ``"auto"``   — ``"torch"`` on the CPU. On a CUDA device, for grids of at
-                 least 16 cells a side, what was fastest on an H100 (PERF.md
+- ``"auto"``   — ``"torch"`` on the CPU, and for any dtype but float32 (the
+                 kernels take no other). On a CUDA device, for float32 grids of
+                 at least 16 cells a side, what was fastest on an H100 (PERF.md
                  section 6, the table of ``tools/bench_fused.py``):
                  ``"fused"`` where K1's resident mode holds the grid in an
                  H100's SMs (squares up to 1034^2); past that ``"ttiled"``
@@ -27,7 +28,7 @@ package's name for the same path:
                  apart) on grids up to ``STREAMING_MAX_CELLS`` go to
                  ``"fused"``, whose streaming mode was ahead there; grids K2
                  does not admit go to ``"fused"`` too (its streaming mode
-                 takes any grid). Never the plain step on the card. This
+                 takes any grid). Never the plain step for float32 on the card. This
                  departs from the JAX package, which gives its on-chip kernel
                  every grid up to (2048+256)^2 whatever the call's length: on
                  this card the state stays on chip only up to about a million
@@ -75,16 +76,19 @@ class FDTDConfig:
 
 
 def resolve_backend(backend: str, shape: Tuple[int, int], device,
-                    steps_per_call: Optional[int] = None) -> str:
-    """The backend that ``backend`` names for a grid of ``shape`` on
-    ``device``; ``steps_per_call`` is the number of steps one kernel call
-    advances (a frame's steps), None for a long call."""
+                    steps_per_call: Optional[int] = None,
+                    dtype: torch.dtype = torch.float32) -> str:
+    """The backend that ``backend`` names for a grid of ``shape`` and fields
+    of ``dtype`` on ``device``; ``steps_per_call`` is the number of steps one
+    kernel call advances (a frame's steps), None for a long call."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend != "auto":
         return backend
     device = torch.device(device)
-    if device.type == "cpu":
+    # the kernels take float32 only; any other dtype runs the plain step, as
+    # the JAX package's "auto" runs any dtype
+    if device.type == "cpu" or dtype != torch.float32:
         return "torch"
     if device.type != "cuda" or min(shape) < fdtd_fused.MIN_SIDE:
         raise ValueError(f"backend 'auto' has no kernel for a {shape} grid on {device}")
@@ -156,7 +160,7 @@ def simulate(eps, mu, config: FDTDConfig, state=None):
     fc = torch.tensor(config.source_fc, dtype=dtype, device=device)
     sx, sy = config.source_xy
     steps_per_frame = max(config.nsteps // max(config.nframes, 1), 1)
-    backend = resolve_backend(config.backend, (rows, cols), device, steps_per_frame)
+    backend = resolve_backend(config.backend, (rows, cols), device, steps_per_frame, dtype)
 
     fields = (Ez, Hx, Hy)
     unpad = backend == "fused" and not config.padded

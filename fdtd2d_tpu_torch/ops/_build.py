@@ -116,6 +116,8 @@ def load() -> ctypes.CDLL:
         lib.fdtd_ttiled_run.argtypes = [p, p, p, p, p, p,     # ez hx hy: a, then b
                                         p, p, p, p, i, p,     # ce ch amp tiles n_tiles counters
                                         i, i, i,              # N M ldg
+                                        i, i, i, i,           # r_lo r_hi c_lo c_hi
+                                        i, i, i, i,           # ar ac AN AM
                                         i, i, i, i,           # TH TW K nsteps
                                         i, i, i, i,           # WH WW sx sy
                                         f, p]                 # coef stream

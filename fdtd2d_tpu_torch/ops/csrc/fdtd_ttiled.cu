@@ -77,6 +77,32 @@
 //
 // The source amplitudes amp[0..steps) of the sweep are computed by the caller
 // on the device, so chunked runs inject exactly what one run does.
+//
+// Block mode (the TPU kernel's sharded mode: GW > 0 and device-varying
+// is_top/is_bot/is_left/is_right, src_g, src_c). The arrays need not hold
+// the whole N x M domain: they hold a sub-rectangle of it, rows
+// [ar, ar + AN) and columns [ac, ac + AM), of which this call owns
+// [r_lo, r_hi) x [c_lo, c_hi); the rest are ghost cells that hold a
+// neighbouring block's values (ops/fdtd_ttiled.py::Block). Tiles cut the
+// owned cells only. Everything else stays in domain coordinates: a window
+// is placed by the same rule (at the domain's edge, or at least S inside
+// it), so at a side of the owned cells that is not a domain edge it reaches
+// K cells into the ghost cells, whose validity recedes a cell a step like
+// any halo's; a side of the array is a domain edge exactly when a window
+// reaches coordinate 0, N or M there, and only then does it get bands,
+// corners and guards, in every window that holds them, ghost cells
+// included; the source (sx, sy) is a domain coordinate, and a window that
+// does not hold it injects nothing. So a window at a ghost boundary holds
+// no band or corner and runs the register body. Only the memory index
+// differs from the single-device call, which is the block with ar = ac = 0
+// that owns everything: cell (i, j) lies at (i - ar) * ldg + (j - ac).
+// Alignment: each array's base is 16-byte aligned and ldg is a multiple of
+// 4, whatever ar, ac and the ghost depth are; a TMA box starts at the
+// window's first column *in the array*, (win0 - ac), rounded down to 4, so
+// it starts on 16 bytes for any origin and ghost depth, and the part of a
+// box outside the array is zero-filled. Ghost cells of the output buffers
+// are never written here: the caller fills all of them (a halo exchange)
+// before the sweep that reads them.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -101,15 +127,16 @@ constexpr int kLd = kWinW + 4;                // TMA box width: window + alignme
 constexpr unsigned kFull = 0xffffffffu;
 
 // Owned range [own0, own1) and window [win0, win1) of tile t along one axis
-// of n cells, tiles of T cells, halo K. Mirrored by ops/fdtd_ttiled.py.
+// of a domain of n cells, in domain coordinates: tiles of T cells over the
+// owned cells [lo, hi), halo K. Mirrored by ops/fdtd_ttiled.py.
 struct Span {
   int own0, own1, win0, win1;
 };
 
-__device__ __forceinline__ Span tile_span(int t, int T, int K, int n) {
+__device__ __forceinline__ Span tile_span(int t, int T, int K, int n, int lo, int hi) {
   Span s;
-  s.own0 = t * T;
-  s.own1 = min(s.own0 + T, n);
+  s.own0 = lo + t * T;
+  s.own1 = min(s.own0 + T, hi);
   s.win0 = s.own0 - K >= kStrip ? s.own0 - K : 0;
   s.win1 = s.own1 + K <= n - kStrip ? s.own1 + K : n;
   return s;
@@ -127,6 +154,26 @@ struct Fields {
   const float* __restrict__ amp;
 };
 
+// Tile geometry of one sweep, and the list the persistent blocks walk. N x M
+// is the domain; the arrays hold its rows from ar and columns from ac on,
+// ldg floats a row, and the tiles cut the owned cells [r_lo, r_hi) x
+// [c_lo, c_hi) (domain coordinates).
+struct Plan {
+  const int* __restrict__ tiles;  // (row tile, column tile) pairs, edge tiles first
+  int n_tiles, N, M, ldg, TH, TW, K;
+  int r_lo, r_hi, c_lo, c_hi, ar, ac;
+};
+
+__device__ __forceinline__ void spans_of(const Plan& p, int item, Span& rs, Span& cs) {
+  rs = tile_span(p.tiles[2 * item], p.TH, p.K, p.N, p.r_lo, p.r_hi);
+  cs = tile_span(p.tiles[2 * item + 1], p.TW, p.K, p.M, p.c_lo, p.c_hi);
+}
+
+// Index in the arrays of the domain's cell (i, j).
+__device__ __forceinline__ int cell_index(const Plan& p, int i, int j) {
+  return (i - p.ar) * p.ldg + (j - p.ac);
+}
+
 // f(wi, wj) over window rows [i0, i1) and columns [j0, j1), the block's
 // threads spread over the rows and, within a row, over consecutive columns.
 template <typename F>
@@ -140,9 +187,11 @@ __device__ __forceinline__ void for_cells(int i0, int i1, int j0, int j1, F f) {
 // Shared memory: Ez, Hx, Hy, ce, ch windows (wh x ld each), then the
 // pre-step Mur strips: left and right (wh x 6), top and bottom (6 x ld).
 __device__ __forceinline__ void edge_sweep(const Fields& f, float* smem, const Span& rs,
-                                           const Span& cs, int N, int M, int ldg, int steps,
+                                           const Span& cs, const Plan& p, int steps,
                                            int ld, int sx, int sy, float coef) {
+  const int N = p.N, M = p.M, ldg = p.ldg;
   const int r0 = rs.win0, c0 = cs.win0;
+  const int g0 = cell_index(p, r0, c0);  // the window's first cell in the arrays
   const int wh = rs.win1 - r0, ww = cs.win1 - c0;
   float* ez = smem;
   float* hx = ez + wh * ld;
@@ -161,7 +210,7 @@ __device__ __forceinline__ void edge_sweep(const Fields& f, float* smem, const S
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
 
   for_cells(0, wh, 0, ww, [&](int wi, int wj) {
-    const int g = (r0 + wi) * ldg + c0 + wj, k = wi * ld + wj;
+    const int g = g0 + wi * ldg + wj, k = wi * ld + wj;
     ez[k] = f.ez_in[g];
     hx[k] = f.hx_in[g];
     hy[k] = f.hy_in[g];
@@ -254,7 +303,7 @@ __device__ __forceinline__ void edge_sweep(const Fields& f, float* smem, const S
   const int oi0 = rs.own0 - r0, oi1 = rs.own1 - r0;
   const int oj0 = cs.own0 - c0, oj1 = cs.own1 - c0;
   for_cells(oi0, oi1, oj0, oj1, [&](int wi, int wj) {
-    const int g = (r0 + wi) * ldg + c0 + wj, k = wi * ld + wj;
+    const int g = g0 + wi * ldg + wj, k = wi * ld + wj;
     f.ez_out[g] = ez[k];
     f.hx_out[g] = hx[k];
     f.hy_out[g] = hy[k];
@@ -289,17 +338,6 @@ __device__ __forceinline__ bool is_interior(const Span& rs, const Span& cs, int 
   return rs.win0 > 0 && rs.win1 < N && cs.win0 > 0 && cs.win1 < M;
 }
 
-// Tile geometry of one sweep, and the list the persistent blocks walk.
-struct Plan {
-  const int* __restrict__ tiles;  // (row tile, column tile) pairs, edge tiles first
-  int n_tiles, N, M, ldg, TH, TW, K;
-};
-
-__device__ __forceinline__ void spans_of(const Plan& p, int item, Span& rs, Span& cs) {
-  rs = tile_span(p.tiles[2 * item], p.TH, p.K, p.N);
-  cs = tile_span(p.tiles[2 * item + 1], p.TW, p.K, p.M);
-}
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -314,12 +352,12 @@ struct Maps {
 // One thread starts the TMA loads of an interior window -- Ez, Hx, Hy, ce,
 // ch, one kWinH x kLd box each -- into `win` ([5][kWinH][kLd], 128-byte
 // aligned); they complete on `bar`. A box must start on a 16-byte column,
-// so it starts at the window's first column rounded down to 4, and the
-// window lies `shift` = win0 % 4 floats into each row. Cells of the box
-// outside the window act as its invalid surround; parts of the box outside
-// the grid are zero-filled.
+// so it starts at the window's first column in the array rounded down to
+// 4, and the window lies `shift` = (win0 - ac) % 4 floats into each row.
+// Cells of the box outside the window act as its invalid surround; parts of
+// the box outside the array are zero-filled.
 __device__ __forceinline__ void load_window(const Maps& maps, float* win, uint64_t* bar,
-                                            const Span& rs, const Span& cs) {
+                                            const Plan& p, const Span& rs, const Span& cs) {
   constexpr unsigned kBytes = 5u * kWinH * kLd * sizeof(float);
   const unsigned b = smem_addr(bar);
   // order earlier generic accesses of `win` before the async proxy's writes
@@ -333,7 +371,8 @@ __device__ __forceinline__ void load_window(const Maps& maps, float* win, uint64
     asm volatile(
         "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
         " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(win + a * kWinH * kLd)),
-        "l"(reinterpret_cast<uint64_t>(m[a])), "r"(cs.win0 & ~3), "r"(rs.win0), "r"(b)
+        "l"(reinterpret_cast<uint64_t>(m[a])), "r"((cs.win0 - p.ac) & ~3),
+        "r"(rs.win0 - p.ar), "r"(b)
         : "memory");
   }
 }
@@ -357,7 +396,8 @@ __device__ __forceinline__ void wait_window(uint64_t* bar, unsigned phase) {
 
 // Interior tiles: the window lies at least S cells inside the domain on
 // every side, so it holds no Mur band and no corner and every cell has
-// 1 <= i < N-1, 1 <= j < M-1. The fields live in registers: each thread
+// 1 <= i < N-1, 1 <= j < M-1 (a window at a block's ghost boundary is such
+// a window). The fields live in registers: each thread
 // steps kR cells of one window column, with their ce and ch read once, from
 // the window that load_window brought into `win`. Once every thread has
 // read its cells, the window of item `next` (interior; -1 for none) is
@@ -372,7 +412,7 @@ __device__ __forceinline__ void interior_sweep(const Fields& f, const Plan& p,
   const int wj = wx * 32 + lane, wi0 = wy * kR;  // window column and first row
   const int r0 = rs.win0, c0 = cs.win0;
   float ez[kR], hx[kR], hy[kR], ce[kR], ch[kR];
-  const int shift = c0 & 3;
+  const int shift = (c0 - p.ac) & 3;
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     const int k = (wi0 + r) * kLd + shift + wj;
@@ -386,7 +426,7 @@ __device__ __forceinline__ void interior_sweep(const Fields& f, const Plan& p,
   if (next >= 0 && threadIdx.x == 0 && threadIdx.y == 0) {
     Span nr, nc;
     spans_of(p, next, nr, nc);
-    load_window(maps, win, bar, nr, nc);
+    load_window(maps, win, bar, p, nr, nc);
   }
 
   const bool source = r0 <= sx && sx < rs.win1 && c0 <= sy && sy < cs.win1;
@@ -439,10 +479,11 @@ __device__ __forceinline__ void interior_sweep(const Fields& f, const Plan& p,
   const int oi0 = rs.own0 - r0, oi1 = rs.own1 - r0;
   const int oj0 = cs.own0 - c0, oj1 = cs.own1 - c0;
   if (oj0 <= wj && wj < oj1) {
+    const int g0 = cell_index(p, r0 + wi0, c0 + wj);
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       if (oi0 <= wi0 + r && wi0 + r < oi1) {
-        const int g = (r0 + wi0 + r) * p.ldg + c0 + wj;
+        const int g = g0 + r * p.ldg;
         f.ez_out[g] = ez[r];
         f.hx_out[g] = hx[r];
         f.hy_out[g] = hy[r];
@@ -482,7 +523,7 @@ ttiled_sweep(Fields f, Plan p, const __grid_constant__ Maps maps, int* __restric
     Span rs, cs;
     spans_of(p, item, rs, cs);
     if (is_interior(rs, cs, p.N, p.M)) {
-      if (!pending && leader) load_window(maps, smem, &bar, rs, cs);
+      if (!pending && leader) load_window(maps, smem, &bar, p, rs, cs);
       bool ahead = false;
       if (next < p.n_tiles) {
         Span nr, nc;
@@ -494,7 +535,7 @@ ttiled_sweep(Fields f, Plan p, const __grid_constant__ Maps maps, int* __restric
       interior_sweep(f, p, maps, x, smem, &bar, rs, cs, ahead ? next : -1, steps, sx, sy);
       pending = ahead;
     } else {
-      edge_sweep(f, smem, rs, cs, p.N, p.M, p.ldg, steps, ld, sx, sy, coef);
+      edge_sweep(f, smem, rs, cs, p, steps, ld, sx, sy, coef);
       pending = false;
     }
     if (leader) claimed[slot] = after;
@@ -512,7 +553,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapFloatOOBfill);
 
 // A TMA descriptor of kWinH x kLd boxes of an (N, ldg) float array whose
-// first M columns are the grid.
+// first M columns are the cells (N x M: the array's extent, not the domain's).
 cudaError_t encode_map(EncodeTiled encode, CUtensorMap* map, const float* base, int N,
                        int M, int ldg) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(M), static_cast<cuuint64_t>(N)};
@@ -560,20 +601,26 @@ int fdtd_ttiled_layout(int WH, int WW, int* out) {
 
 // Advance the padded state nsteps steps on `stream` (a cudaStream_t of the
 // current device, which holds every pointer): ceil(nsteps / K) sweeps, the
-// last of depth nsteps % K where that is not 0. Every array is (N, ldg)
-// floats, 16-byte aligned, ldg >= M a multiple of 4, the grid in its first
-// M columns. Sweep s reads buffer set (s even ? a : b) and writes the
-// other, so the result is in b when the number of sweeps is odd, else in
-// a. Tiles are TH x TW owned cells with a halo of K; `tiles` lists the
-// n_tiles (row tile, column tile) pairs, edge tiles first; WH x WW is the
-// largest window of the tiling, which sizes the edge body's shared memory.
-// `amp` holds nsteps source amplitudes. Returns the first CUDA error seen
-// (cudaSuccess = 0); launches asynchronously, so faults during the run
-// surface at the caller's next synchronisation.
+// last of depth nsteps % K where that is not 0. The domain is N x M cells;
+// every array is (AN, ldg) floats, 16-byte aligned, ldg >= AM a multiple of
+// 4, and holds the domain's rows [ar, ar + AN) and columns [ac, ac + AM) in
+// its first AM columns. The sweeps write the owned cells [r_lo, r_hi) x
+// [c_lo, c_hi) (domain coordinates) and no other; the single-device call
+// owns the whole domain in arrays of the domain's extent. Sweep s reads
+// buffer set (s even ? a : b) and writes the other, so the result is in b
+// when the number of sweeps is odd, else in a. Tiles are TH x TW owned cells
+// with a halo of K; `tiles` lists the n_tiles (row tile, column tile) pairs,
+// edge tiles first; WH x WW is the largest window of the tiling, which sizes
+// the edge body's shared memory. `amp` holds nsteps source amplitudes and
+// `counters` a zero a sweep; (sx, sy) is the source in domain coordinates,
+// and a window that does not hold it injects nothing. Returns the first CUDA
+// error seen (cudaSuccess = 0); launches asynchronously, so faults during
+// the run surface at the caller's next synchronisation.
 int fdtd_ttiled_run(float* ez_a, float* hx_a, float* hy_a, float* ez_b,
                     float* hx_b, float* hy_b, const float* ce, const float* ch,
                     const float* amp, const int* tiles, int n_tiles, int* counters,
-                    int N, int M, int ldg,
+                    int N, int M, int ldg, int r_lo, int r_hi, int c_lo, int c_hi,
+                    int ar, int ac, int AN, int AM,
                     int TH, int TW, int K, int nsteps, int WH, int WW, int sx, int sy,
                     float coef, void* stream) {
   const int ld = WW | 1;
@@ -600,16 +647,18 @@ int fdtd_ttiled_run(float* ez_a, float* hx_a, float* hy_a, float* ez_b,
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   Maps maps[2];  // the fields read by even and by odd sweeps
   const float* read[2][3] = {{ez_a, hx_a, hy_a}, {ez_b, hx_b, hy_b}};
-  for (int set = 0; set < 2 && err == cudaSuccess; ++set) {
-    err = encode_map(encode, &maps[set].ez, read[set][0], N, M, ldg);
-    if (err == cudaSuccess) err = encode_map(encode, &maps[set].hx, read[set][1], N, M, ldg);
-    if (err == cudaSuccess) err = encode_map(encode, &maps[set].hy, read[set][2], N, M, ldg);
-    if (err == cudaSuccess) err = encode_map(encode, &maps[set].ce, ce, N, M, ldg);
-    if (err == cudaSuccess) err = encode_map(encode, &maps[set].ch, ch, N, M, ldg);
+  // a one-sweep call (a caller that exchanges halos between sweeps) reads set a only
+  const int sets = nsteps > K ? 2 : 1;
+  for (int set = 0; set < sets && err == cudaSuccess; ++set) {
+    err = encode_map(encode, &maps[set].ez, read[set][0], AN, AM, ldg);
+    if (err == cudaSuccess) err = encode_map(encode, &maps[set].hx, read[set][1], AN, AM, ldg);
+    if (err == cudaSuccess) err = encode_map(encode, &maps[set].hy, read[set][2], AN, AM, ldg);
+    if (err == cudaSuccess) err = encode_map(encode, &maps[set].ce, ce, AN, AM, ldg);
+    if (err == cudaSuccess) err = encode_map(encode, &maps[set].ch, ch, AN, AM, ldg);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
-  const Plan p{tiles, n_tiles, N, M, ldg, TH, TW, K};
+  const Plan p{tiles, n_tiles, N, M, ldg, TH, TW, K, r_lo, r_hi, c_lo, c_hi, ar, ac};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(kThreadsX, kThreadsY);
   int sweep = 0;

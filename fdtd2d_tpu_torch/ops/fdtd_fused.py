@@ -156,7 +156,10 @@ def plan_resident(N: int, M: int, sms: int, registers: int, smem: int,
     Raises ``ValueError`` beyond capacity."""
     if N < MIN_SIDE or M < MIN_SIDE:
         raise ValueError(f"grid {(N, M)} is smaller than {MIN_SIDE} a side")
-    error = None
+    # the last refusal's text, not the exception: an exception kept in a local
+    # of the frame its traceback holds is a cycle, and that cycle keeps every
+    # caller's frame (a rollout's tensors) alive until the cyclic collector runs
+    refusal = ""
     for variant in VARIANTS:
         if tiles is None:
             nth = next((nt for nt in range(2, N // S + 1)
@@ -170,8 +173,8 @@ def plan_resident(N: int, M: int, sms: int, registers: int, smem: int,
             check_resident_plan(N, M, plan, sms, registers, smem)
             return plan
         except ValueError as e:
-            error = e
-    raise error
+            refusal = str(e)
+    raise ValueError(refusal)
 
 
 @functools.lru_cache(maxsize=8)

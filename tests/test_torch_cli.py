@@ -55,5 +55,19 @@ def test_cli_fdfd_has_no_timedomain_solver(capsys):
 
 def test_cli_rejects_unknown_backend(capsys):
     with pytest.raises(SystemExit):
-        main(ARGS + ["--backend", "pallas"])
+        main(ARGS + ["--backend", "mosaic"])
     assert "invalid choice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("jax_name,ours", [("jax", "torch"), ("pallas", "fused")])
+def test_cli_takes_the_jax_backend_names(capsys, jax_name, ours):
+    """``--backend jax`` and ``--backend pallas``, the JAX CLI's names, run the
+    port's ``torch`` and ``fused`` backends: the same printed field, and the
+    JAX CLI's own run of that backend within 1e-4."""
+    assert main(ARGS + ["--device", "cpu", "--backend", jax_name]) == 0
+    alias = _printed(capsys.readouterr().out, "max |Ez|")
+    assert main(ARGS + ["--device", "cpu", "--backend", ours]) == 0
+    assert alias == _printed(capsys.readouterr().out, "max |Ez|") > 0
+    assert jax_main(ARGS + ["--backend", jax_name]) == 0
+    ref = _printed(capsys.readouterr().out, "max |Ez|")
+    assert abs(alias - ref) <= 1e-4 * abs(ref)

@@ -1,5 +1,5 @@
-"""K1 (both modes), K2 and K3 mode on the card: the CUDA kernels against
-their plain versions; and the FDFD solvers on the card against complex128 on the CPU.
+"""K1 (both modes), K2 (single-device and block mode) and K3 mode on the
+card: the CUDA kernels against their plain versions; and the FDFD solvers on the card against complex128 on the CPU.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -300,6 +300,100 @@ def test_tiled_kernel_raises_on_float64(dev):
         fdtd_blocked.fdtd_multistep_blocked(Ez, Hx, Hy, ce, ch, 0.5, DT, FC, 16, 16, 5,
                                             "ricker", 0)
     assert (fdtd_ttiled.launches, fdtd_blocked.launches) == before
+
+
+@pytest.mark.parametrize("mesh_shape,K,tile,source", [
+    ((2, 2), 7, (13, 16), (102, 79)),   # the source where four blocks meet
+    ((4, 1), 8, (17, 40), (10, 10)),    # outside three blocks' arrays
+    ((3, 2), None, None, (199, 153)),   # the planner's tiles
+])
+def test_block_mode_matches_plain_float64_and_single_device(dev, mesh_shape, K, tile, source):
+    """K2's block mode through the sharded rollout, every block on the one
+    card: 203x157 from a random state that reaches every band and corner, 61
+    steps (a short last sweep), against the float64 plain step at 1e-5 and
+    against single-device K2 bit for bit; one launch a block a sweep."""
+    from fdtd2d_tpu_torch.parallel import fdtd_sharded, make_mesh, simulate_sharded_ttiled
+
+    rows, cols, nsteps = 203, 157, 61
+    rng = np.random.default_rng(0)
+    eps = (constants.EPSILON_0 * (1.0 + 3.0 * rng.random((rows, cols)))).astype(np.float32)
+    mu = np.full((rows, cols), constants.MU_0, np.float32)
+    state = tuple((rng.standard_normal(shape) / scale).astype(np.float32)
+                  for shape, scale in (((rows, cols), 1.0), ((rows, cols - 1), Z0),
+                                       ((rows - 1, cols), Z0)))
+    cfg = FDTDConfig(dt=DT, dx=DX, nsteps=nsteps, source_xy=source, source_fc=FC,
+                     backend="ttiled", device="cuda")
+    n = mesh_shape[0] * mesh_shape[1]
+    mesh = make_mesh(mesh_shape, devices=[dev] * n)
+    depth = fdtd_sharded._resolve_plan(rows, cols, *mesh_shape, K, tile)[0]
+    before = fdtd_ttiled.block_launches, fdtd_ttiled.launches
+    kern, _ = simulate_sharded_ttiled(eps, mu, cfg, mesh, state=state, K=K, tile=tile)
+    torch.cuda.synchronize()
+    assert fdtd_ttiled.block_launches - before[0] == n * -(-nsteps // depth)
+    assert fdtd_ttiled.launches == before[1]
+    single, _ = simulate(eps, mu, cfg, state=state)
+    plain, _ = simulate(eps, mu, dataclasses.replace(cfg, backend="torch", dtype=torch.float64),
+                        state=state)
+    assert boundary_cover(plain[0]) >= 1e-3
+    for k, s, p in zip(kern, single, plain):
+        assert k.shape == p.shape and torch.equal(k, s)
+        assert float((k.double() - p).abs().max() / p.abs().max()) <= 1e-5
+
+
+def test_block_sweep_raises_on_what_the_kernel_does_not_take(dev):
+    """On CUDA tensors the block sweep launches the kernel or raises: float64
+    buffers, buffers that are not in the kernel's layout, and a ghost depth
+    below the sweep depth are refused before any launch."""
+    blk = fdtd_ttiled.Block(64, 64, 0, 32, 0, 64, 4)
+    AN, AM = blk.shape
+    ld = fdtd_ttiled.row_stride(AM)
+
+    def buffers(dtype=torch.float32, ld=ld):
+        return (torch.zeros((3, AN, ld), dtype=dtype, device=dev),
+                torch.zeros((3, AN, ld), dtype=dtype, device=dev),
+                torch.ones((AN, ld), dtype=dtype, device=dev),
+                torch.ones((AN, ld), dtype=dtype, device=dev))
+
+    amps = torch.zeros(4, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = fdtd_ttiled.block_launches
+    with pytest.raises(ValueError, match="float32"):
+        fdtd_ttiled.fdtd_block_sweep(blk, *buffers(torch.float64), 0.5, amps.double(), counter,
+                                     32, 32, 4, (16, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        fdtd_ttiled.fdtd_block_sweep(blk, *buffers(ld=ld + 4), 0.5, amps, counter, 32, 32, 4,
+                                     (16, 32))
+    with pytest.raises(ValueError, match="ghost depth"):
+        fdtd_ttiled.fdtd_block_sweep(blk, *buffers(), 0.5, torch.zeros(5, device=dev), counter,
+                                     32, 32, 5, (16, 32))
+    assert fdtd_ttiled.block_launches == before
+    fdtd_ttiled.fdtd_block_sweep(blk, *buffers(), 0.5, amps, counter, 32, 32, 4, (16, 32))
+    torch.cuda.synchronize()
+    assert fdtd_ttiled.block_launches == before + 1
+
+
+def test_auto_with_float64_runs_the_plain_step_on_the_card(dev):
+    """'auto' names a kernel for float32 only: a float64 rollout on the card
+    runs the plain step (it raised before), launches nothing, and equals
+    backend='torch' bit for bit; sharded over four blocks of the card it
+    agrees to 1e-12."""
+    from fdtd2d_tpu_torch.parallel import make_mesh, simulate_sharded
+
+    N = 96
+    eps = np.full((N, N), constants.EPSILON_0)
+    eps[20:40, 30:50] *= 3.0
+    mu = np.full((N, N), constants.MU_0)
+    cfg = FDTDConfig(dt=DT, dx=DX, nsteps=40, source_xy=(48, 48), source_fc=FC, nframes=4,
+                     backend="auto", dtype=torch.float64, device="cuda")
+    before = (fdtd_fused.launches, fdtd_ttiled.launches, fdtd_ttiled.block_launches)
+    (Ez, Hx, Hy), snaps = simulate(eps, mu, cfg)
+    want, want_snaps = simulate(eps, mu, dataclasses.replace(cfg, backend="torch"))
+    sharded, sharded_snaps = simulate_sharded(eps, mu, cfg, make_mesh((2, 2), devices=[dev] * 4))
+    assert (fdtd_fused.launches, fdtd_ttiled.launches, fdtd_ttiled.block_launches) == before
+    assert Ez.dtype == torch.float64 and Ez.is_cuda
+    for a, b, c in zip((Ez, Hx, Hy, snaps), (*want, want_snaps), (*sharded, sharded_snaps)):
+        assert torch.equal(a, b)
+        assert float((c - b).abs().max()) <= 1e-12 * float(b.abs().max())
 
 
 def test_direct_solver_on_card_matches_cpu_complex128(dev):

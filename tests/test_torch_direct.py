@@ -243,3 +243,36 @@ def test_unported_factor_modes_raise(mode):
     eps, mu, _ = _hard_scene(16)
     with pytest.raises(NotImplementedError, match="item 12"):
         DirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=4, device="cpu", **{mode: True})
+
+
+def test_unported_modes_take_the_jax_keywords():
+    """The call of bench.py's direct2048 row (compressed, with rank, leaf,
+    power_iters and stacked_solve) and hps with hps_leaf reach the
+    NotImplementedError that names the item, not a TypeError."""
+    eps, mu, _ = _hard_scene(16)
+    kw = dict(pml_thickness=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        DirectSolver(eps, mu, DX, DX, 17e9, compressed=True, rank=12, leaf=128,
+                     power_iters=2, stacked_solve=False, **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        DirectSolver(eps, mu, DX, DX, 17e9, hps=True, hps_leaf=8, **kw)
+    # the five keywords are inert in the ported modes
+    DirectSolver(eps, mu, DX, DX, 17e9, rank=20, leaf=128, power_iters=1,
+                 stacked_solve=True, hps_leaf=8, **kw)
+
+
+@pytest.mark.parametrize("modes", [("checkpointed", "compressed"), ("compressed", "hps"),
+                                   ("checkpointed", "hps"),
+                                   ("checkpointed", "compressed", "hps")],
+                         ids="+".join)
+def test_more_than_one_factor_mode_is_a_value_error(modes):
+    """As the JAX constructor: more than one of checkpointed/compressed/hps
+    is a ValueError, raised before anything says a mode is not ported."""
+    from fdtd2d_tpu.fdfd.direct import DirectSolver as JaxDirectSolver
+
+    eps, mu, _ = _hard_scene(16)
+    flags = {m: True for m in modes}
+    with pytest.raises(ValueError, match="choose one of"):
+        DirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=4, device="cpu", **flags)
+    with pytest.raises(ValueError, match="choose one of"):
+        JaxDirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=4, **flags)

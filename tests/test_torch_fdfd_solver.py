@@ -97,6 +97,39 @@ def test_fgmres_complex64_matches_jax_iterations():
     assert _rel(out.x.numpy(), jout.x) < 1e-4
 
 
+def test_solve_fdfd_warm_start_matches_jax_counts():
+    """``solve_fdfd(x0=)`` reaches fgmres, as the JAX package's _solve_core
+    passes it: restarted from a solution of looser tolerance, the solve takes
+    fewer restart cycles than a cold one, the same number as JAX from the
+    same warm start, and ends at the same field."""
+    from fdtd2d_tpu.fdfd.solver import _solve_core as jax_solve_core
+    from fdtd2d_tpu.fdfd.solver import resolve_preconditioner as jax_resolve
+
+    N = 64
+    eps, mu = _scene(N, seed=5)
+    eps[20:40, 16:32] *= 2.0
+    b = np.zeros((N, N), np.complex128)
+    b[N // 2, N // 2] = -1j * OMEGA
+    op = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=12, dtype=torch.complex128,
+                       device="cpu")
+    jop = jax_make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=12, dtype=jnp.complex128)
+    kw = dict(tol=1e-10, maxiter=400, restart=10)
+    cold = solve_fdfd(op, torch.as_tensor(b), **kw)
+    rough = solve_fdfd(op, torch.as_tensor(b), tol=1e-4, maxiter=400, restart=10)
+    warm = solve_fdfd(op, torch.as_tensor(b), x0=rough.x.reshape(-1), **kw)
+    assert cold.converged and warm.converged
+    assert 0 < warm.iterations < cold.iterations
+    assert warm.iterations + rough.iterations <= cold.iterations + kw["restart"]
+    jM, jbuiltin = jax_resolve(jop, "fdm")
+    jkw = dict(method="fgmres", builtin_pc=jbuiltin, **kw)
+    jcold = jax_fgmres(jop.apply, jnp.asarray(b), jM, **kw)
+    jwarm = jax_fgmres(jop.apply, jnp.asarray(b), jM, x0=jnp.asarray(rough.x.numpy()), **kw)
+    assert (cold.iterations, warm.iterations) == (int(jcold.iterations), int(jwarm.iterations))
+    jres = jax_solve_core(jop, jnp.asarray(b), jM, x0=jnp.asarray(rough.x.numpy()), **jkw)
+    assert _rel(warm.x.numpy(), jres.x) < 1e-6
+    assert _rel(warm.x.numpy(), cold.x.numpy()) < 1e-6
+
+
 def test_fgmres_breakdown_and_zero_rhs():
     """An exact solve in one Arnoldi step (identity operator) leaves zero
     vectors behind, which the guarded rotations and back-substitution skip;

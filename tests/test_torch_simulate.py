@@ -121,8 +121,23 @@ def test_resolve_backend():
 ])
 def test_resolve_backend_auto_on_the_card(shape, steps_per_call, want):
     got = resolve_backend("auto", shape, "cuda", steps_per_call)
-    assert got == want and got != "torch"  # never the plain path on the card
+    assert got == want and got != "torch"  # never the plain path for float32 on the card
     assert resolve_backend("auto", shape, "cuda:1", steps_per_call) == want
+    assert resolve_backend("auto", shape, "cuda", steps_per_call, torch.float32) == want
+
+
+@pytest.mark.parametrize("shape,steps_per_call", [
+    ((200, 200), 5), ((1034, 1034), None), ((2048, 2048), 200), ((8192, 8192), None),
+    ((12, 64), None),  # too small for a kernel: float32 raises, float64 does not
+])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_resolve_backend_auto_other_dtypes_take_the_plain_step(shape, steps_per_call, dtype):
+    """The kernels take float32 only, so 'auto' names the plain step for any
+    other dtype on the card (the JAX package runs any dtype through 'auto');
+    a backend named outright is returned as it is, and its wrapper raises."""
+    assert resolve_backend("auto", shape, "cuda", steps_per_call, dtype) == "torch"
+    assert resolve_backend("auto", shape, "cpu", steps_per_call, dtype) == "torch"
+    assert resolve_backend("ttiled", shape, "cuda", steps_per_call, dtype) == "ttiled"
 
 
 @pytest.mark.parametrize("padded", [False, True])
@@ -141,6 +156,35 @@ def test_simulate_fused_keeps_the_padded_state_across_frames(padded):
         assert g.shape == w.shape and torch.equal(g, w)
     again, _ = simulate(eps, mu, FDTDConfig(backend="fused", **kw), state=got)
     assert all(a.shape == g.shape for a, g in zip(again, got))
+
+
+def test_resolve_backend_leaves_no_cycle_holding_its_caller():
+    """'auto' asks K1's resident planner, which refuses large grids with a
+    ValueError. The refusal must not leave a reference cycle through its
+    traceback: that cycle reaches the frames of every caller, so a rollout's
+    tensors (gigabytes at 8192^2) stayed allocated after ``simulate``
+    returned, until the cyclic collector ran."""
+    import gc
+    import weakref
+
+    from fdtd2d_tpu_torch.ops import fdtd_fused
+
+    class Held:
+        pass
+
+    def caller():
+        held = Held()  # stands for simulate's tensors
+        assert resolve_backend("auto", (2048, 2048), "cuda", 200) == "ttiled"
+        return weakref.ref(held)
+
+    fdtd_fused.plan_resident.cache_clear()
+    gc.collect()
+    gc.disable()
+    try:
+        ref = caller()
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 def test_float64_plain_path_matches_oracle_tightly():

@@ -1,12 +1,17 @@
 """Device-time profile of one FDTD rollout on the GPU, with torch.profiler.
 
     python tools/profile_fdtd.py [--size 2048] [--steps 200] [--frames 0]
-                                 [--backends fused,torch] [--out DIR]
+                                 [--backends fused,torch] [--mesh RxC] [--out DIR]
     python tools/profile_fdtd.py --size 4096 --backends ttiled,fused
     python tools/profile_fdtd.py --size 200 --steps 1000 --frames 200 --backends fused,ttiled
+    python tools/profile_fdtd.py --size 8192 --steps 64 --backends ttiled --mesh 2x2
 
 ``--frames n`` cuts the rollout into n frames (``simulate``'s ``nframes``), so
 that each kernel call advances ``steps / n`` steps, as the CLI's rollouts do.
+``--mesh RxC`` (or ``R`` for a 1D mesh of row blocks) runs the rollout through
+``simulate_sharded`` on a mesh whose every entry is the one card: the halo
+exchange's strip copies and one K2 launch a block a sweep (no copy between
+two cards is made).
 For each backend of ``--backends`` (``fused``: K1; ``ttiled``: K2; ``torch``:
 the plain path) it runs the bench scene of ``bench.py``'s fdtd rows (2048^2
 by default: a 4x dielectric block, Ricker source at the centre, fc 30 GHz,
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 from pathlib import Path
 
@@ -114,6 +120,8 @@ def parse_args(argv=None):
     parser.add_argument("--steps", type=int, default=200)
     parser.add_argument("--frames", type=int, default=0)
     parser.add_argument("--backends", type=backend_list, default=["fused", "torch"])
+    parser.add_argument("--mesh", type=lambda text: tuple(int(d) for d in text.split("x")),
+                        default=None)
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "profile")
     return parser.parse_args(argv)
 
@@ -126,9 +134,19 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from fdtd2d_tpu_torch import constants
     from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, simulate
+    from fdtd2d_tpu_torch.parallel import make_mesh, simulate_sharded
     from fdtd2d_tpu_torch.utils.metrics import Timer, device_info
 
     N, dev = args.size, torch.device("cuda:0")
+    if args.mesh is None:
+        run, tag = simulate, ""
+    else:
+        mesh = make_mesh(args.mesh, devices=[dev] * math.prod(args.mesh))
+        tag = "_mesh" + "x".join(map(str, args.mesh))
+
+        def run(eps, mu, cfg, state=None):
+            return simulate_sharded(eps, mu, cfg, mesh, state=state)
+
     eps = torch.full((N, N), constants.EPSILON_0, dtype=torch.float32, device=dev)
     eps[N // 4 : N // 2, N // 4 : N // 3] *= 4.0
     mu = torch.full((N, N), constants.MU_0, dtype=torch.float32, device=dev)
@@ -138,17 +156,17 @@ def main(argv=None) -> int:
         cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=args.steps, source_xy=(N // 2, N // 2),
                          source_fc=30e9, nframes=args.frames, backend=backend,
                          device="cuda")
-        state, _ = simulate(eps, mu, cfg)
+        state, _ = run(eps, mu, cfg)
         with torch.profiler.profile(activities=activities) as prof:
             with Timer(dev) as timer:
-                simulate(eps, mu, cfg, state=state)
+                run(eps, mu, cfg, state=state)
         with Timer(dev) as plain_timer:  # the same call with no profiler attached
-            simulate(eps, mu, cfg, state=state)
-        trace = args.out / f"trace_{backend}_{N}_{args.frames}.json"
+            run(eps, mu, cfg, state=state)
+        trace = args.out / f"trace_{backend}_{N}_{args.frames}{tag}.json"
         prof.export_chrome_trace(str(trace))
         summary = summarize(trace, args.steps, timer.seconds)
         print(json.dumps({"backend": backend, "size": N, "steps": args.steps,
-                          "frames": args.frames,
+                          "frames": args.frames, "mesh": args.mesh,
                           "wall_unprofiled_ms": plain_timer.seconds * 1e3,
                           "trace": str(trace.relative_to(ROOT)) if trace.is_relative_to(ROOT)
                           else str(trace), **summary}))
