@@ -164,6 +164,28 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
     on 2x2 blocks. All blocks share the one card: no copy between two cards
     is made and no scaling is measured. (Phases 17 and 18 run between
     phases 9 and 10.)
+19. The adjoint on the card (fdfd/autodiff.py): at 32^2 in complex128, the
+    gradients of a phase-sensitive loss of ``solve_helmholtz_differentiable``
+    in eps, mu and a complex source against dense ``torch.linalg.solve``
+    autograd of the densified operator, each <= 1e-6 of max |grad|; a batched
+    solve of an operator stacked over 3 omegas against three single solves,
+    <= 1e-12 in complex128 and <= 1e-5 in complex64, with equal per-member
+    iterations.
+20. Inverse design at full width (apps/inverse_design.py): ``optimize`` of
+    ``lowpass_problem(N=250, n_freqs=10)`` (the CLI's default ``invdes``),
+    complex64, Adam lr 0.05, opt_tol 1e-4, 5 steps: a finite history with
+    min(history) < history[0], the design in [1, 3], 10 finite final
+    responses; seconds a warm step. Then three steps as ``optimize`` takes
+    them (tools/profile_fdfd.py's ``invdes_steps``), the last under
+    torch.profiler: forward and adjoint FGMRES iterations per member, peak
+    device memory, launches an FGMRES iteration, device busy share. Then, in
+    complex128 at solver tol 1e-10, the step-0 gradient against a central
+    finite difference of the loss along one seeded direction (<= 1e-4
+    relative). Then ``python -m fdtd2d_tpu_torch.cli invdes --size 250
+    --steps 3 --freqs 10 --device cuda --out ""`` (a finite final loss), and
+    ``decade_lowpass_problem(N=848, n_freqs=10)`` (the 10-100 GHz sweep)
+    through ``invdes_steps``: a cold step, a warm one and a profiled one,
+    with the same figures. (Phases 19 and 20 run after phase 15.)
 
 Tolerance: 1e-5 relative (max |kernel - plain| / max |plain|), the bound of
 the float64 oracle tests (tests/test_fdtd_oracle.py). The kernel and the
@@ -181,7 +203,9 @@ library_ms is null), one with the GCells/s of phase 5, one with phase 9's
 table of K1's modes, one with the times, errors, plan-traffic
 bounds and tile counts of phases 6-9, one with the parity and the cells of
 phases 17-18,
-one with the times, residuals and peak memory of phases 10-15, and the
+one with the times, residuals and peak memory of phases 10-15, one
+(``invdes``) with the errors, times, iterations, launches and peak memory
+of phases 19-20, and the
 nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -594,6 +618,182 @@ def fdfd_phases(dev) -> dict:
     out["cli"] = cli
     done(t0)
     return out
+
+
+def adjoint_phase(dev) -> dict:
+    """Phase 19: the adjoint solve's gradients and the batched solve on the
+    card, against dense autograd and single solves."""
+    from fdtd2d_tpu_torch import constants
+    from fdtd2d_tpu_torch.fdfd.autodiff import solve_helmholtz_differentiable
+    from fdtd2d_tpu_torch.fdfd.solver import solve_fdfd
+    from fdtd2d_tpu_torch.ops.fdm import fdm_preconditioner_for, stack_preconditioners
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator, stack_operators
+
+    t0 = phase("19. the adjoint on the card: eps, mu and complex-source gradients at 32^2 vs "
+               "dense autograd; a batched F = 3 solve vs three single solves")
+    N, dx, omega, pml, c128 = 32, 1e-3, 17e9, 8, torch.complex128
+    rng = np.random.default_rng(5)
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    eps = t(constants.EPSILON_0 * (1.0 + rng.random((N, N))))
+    mu = t(np.full((N, N), constants.MU_0))
+    b = t(rng.standard_normal((N, N)) + 1j * rng.standard_normal((N, N)))
+    w = t(rng.standard_normal((N, N)) + 1j * rng.standard_normal((N, N)))
+
+    def op_of(e, m, om=omega, dtype=c128):
+        return make_operator(e, m, dx, dx, om, pml_thickness=pml, dtype=dtype, device=dev)
+
+    M = fdm_preconditioner_for(op_of(eps, mu))
+
+    def loss(x):  # not invariant to a global phase: sees a conjugated gradient
+        x = x * 1e12
+        return (w * x).sum().real + (x.abs() ** 2).sum() * 1e-2
+
+    def custom(e, m, s):
+        return loss(solve_helmholtz_differentiable(op_of(e, m), s, preconditioner=M,
+                                                   tol=1e-12, maxiter=400))
+
+    def dense(e, m, s):
+        eye = torch.eye(N * N, dtype=c128, device=dev).reshape(N * N, N, N)
+        A = op_of(e, m).apply(eye).reshape(N * N, -1).T
+        return loss(torch.linalg.solve(A, s.reshape(-1)).reshape(N, N))
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_(True) for a in (eps, mu, b)]
+        return torch.autograd.grad(fn(*leaves), leaves)
+
+    errs = {name: float((g - r).abs().max() / r.abs().max())
+            for name, g, r in zip(("eps", "mu", "source"), grads(custom), grads(dense))}
+    for name, err in errs.items():
+        if not err <= 1e-6:
+            raise AssertionError(f"adjoint {name} gradient vs dense autograd: {err:.3e} > 1e-6")
+
+    omegas = (12e9, 17e9, 23e9)
+    eps_b = t(constants.EPSILON_0 * (1.0 + 2.0 * rng.random((N, N))))
+    src = np.zeros((N, N))
+    src[N // 3, N // 2] = 1.0
+    batched = {}
+    for dtype, tol, bound in ((c128, 1e-10, 1e-12), (torch.complex64, 1e-5, 1e-5)):
+        ops = [op_of(eps_b, mu, om, dtype) for om in omegas]
+        op = stack_operators(ops)
+        Ms = stack_preconditioners([fdm_preconditioner_for(o) for o in ops])
+        bs = torch.stack([t(-1j * om * src) for om in omegas])
+        kw = dict(tol=tol, maxiter=400, restart=10)
+        res = solve_fdfd(op, bs, preconditioner=Ms, **kw)
+        singles = [solve_fdfd(o, bf, **kw) for o, bf in zip(ops, bs)]
+        err = max(complex_rel_err(res.x[f], s.x) for f, s in enumerate(singles))
+        its = [s.iterations for s in singles]
+        if not (err <= bound and res.iterations == its):
+            raise AssertionError(f"batched {dtype} solve vs single solves: {err:.3e} (<= {bound}), "
+                                 f"iterations {res.iterations} vs {its}")
+        batched[str(dtype).split(".")[-1]] = {"rel_err": err, "iterations": res.iterations,
+                                              "residuals": res.relative_residual}
+    done(t0, "gradients vs dense " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
+         "; batched vs single " + ", ".join(f"{k} {v['rel_err']:.3e} {v['iterations']}"
+                                             for k, v in batched.items()))
+    return {"gradient_rel_err": errs, "batched": batched}
+
+
+def invdes_phases(dev, profile_fdfd) -> dict:
+    """Phase 20: inverse design at 250^2 x 10 frequencies (optimize, the
+    profiled step, the finite-difference check, the CLI) and the 848^2
+    decade sweep. Returns the ``invdes250`` and ``invdes848`` cells."""
+    from fdtd2d_tpu_torch.apps.inverse_design import (
+        decade_lowpass_problem, lowpass_problem, make_response_fn, optimize)
+
+    traces = ROOT / "build" / "invdes_traces"  # git-ignored; summarized, then removed
+    traces.mkdir(parents=True, exist_ok=True)
+
+    def steps_summary(problem, name):
+        steps = profile_fdfd.invdes_steps(problem, 3, trace=traces / f"{name}.json")
+        (traces / f"{name}.json").unlink()
+        prof = steps[-1].pop("profile")
+        last = steps[-1]
+        if not all(np.isfinite(s["loss"]) for s in steps):
+            raise AssertionError(f"{name}: a loss is not finite: {steps}")
+        return {"steps": steps, "warm_step_s": steps[1]["seconds"],
+                "forward_iterations": last["forward_iterations"],
+                "adjoint_iterations": last["adjoint_iterations"],
+                "worst_residual": max(last["forward_residual"] + last["adjoint_residual"]),
+                "peak_gb": max(s["peak_gb"] for s in steps),
+                "launches_per_iteration": prof["launches_per_iteration"],
+                "profiled": {**{k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share",
+                                                     "launches")},
+                             "kernels": {k[:80]: v for k, v in
+                                         list(prof["kernels"].items())[:8]}}}
+
+    def say(cell):
+        return (f"warm step {cell['warm_step_s']:.3f} s; iterations a member forward "
+                f"{cell['forward_iterations']}, adjoint {cell['adjoint_iterations']} (worst "
+                f"residual {cell['worst_residual']:.2e}); "
+                f"{cell['launches_per_iteration']:.1f} launches an iteration, busy "
+                f"{cell['profiled']['busy_share']:.3f}; peak {cell['peak_gb']:.3f} GB")
+
+    t0 = phase("20. inverse design: optimize(lowpass_problem(N=250, n_freqs=10)), complex64, "
+               "Adam lr 0.05, opt_tol 1e-4, 5 steps; the profiled step; the gradient vs "
+               "finite differences; the CLI; the 848^2 decade sweep")
+    problem = lowpass_problem(N=250, n_freqs=10, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stamps = []
+    (design, resp, history), optimize_s = timed(lambda: optimize(
+        problem, steps=5, lr=0.05, opt_tol=1e-4, log_every=1,
+        callback=lambda *a: stamps.append(time.perf_counter())), dev)
+    if not (all(np.isfinite(history)) and min(history) < history[0]):
+        raise AssertionError(f"invdes250: the loss did not decrease: {history}")
+    if not (float(design.min()) >= 1.0 and float(design.max()) <= 3.0):
+        raise AssertionError("invdes250: the design left [1, 3]")
+    if not (resp.shape == (len(problem.omegas),) and bool(torch.isfinite(resp).all())):
+        raise AssertionError(f"invdes250: final responses {resp}")
+    cell = {"optimize": {"history": history, "seconds": optimize_s,
+                         "warm_step_s": (stamps[4] - stamps[1]) / 3,
+                         "responses": resp.tolist(), "peak_gb": peak_gb(dev)}}
+    cell.update(steps_summary(problem, "invdes250"))
+
+    # the step-0 gradient against a central difference, complex128 at tol 1e-10
+    tight = dataclasses.replace(problem, tol=1e-10, maxiter=2000)
+    _, loss = make_response_fn(tight, torch.complex128)
+    design0 = torch.full(design.shape, 2.0, dtype=torch.float64, device=dev)
+    _, grad, xs = loss.value_and_grad(design0)
+    direction = torch.randn(design.shape, generator=torch.Generator().manual_seed(0),
+                            dtype=torch.float64).to(dev)
+    h = 1e-3
+    with torch.no_grad():
+        fd = (float(loss(design0 + h * direction, xs))
+              - float(loss(design0 - h * direction, xs))) / (2 * h)
+    analytic = float((grad * direction).sum())
+    fd_err = abs(fd - analytic) / abs(analytic)
+    if not fd_err <= 1e-4:
+        raise AssertionError(f"invdes250: gradient {analytic} vs finite difference {fd}: "
+                             f"{fd_err:.3e} > 1e-4")
+    cell["finite_difference"] = {"h": h, "fd": fd, "analytic": analytic, "rel_err": fd_err,
+                                 "forward_iterations": loss.info["forward_iterations"]}
+    del loss, grad, xs
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "fdtd2d_tpu_torch.cli", "invdes", "--size", "250", "--steps",
+           "3", "--freqs", "10", "--device", "cuda", "--out", ""]
+    t_cli = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t_cli
+    m = re.search(r"^final loss: (\S+)$", proc.stdout, re.M)
+    if proc.returncode != 0 or m is None or not np.isfinite(float(m.group(1))):
+        raise AssertionError(f"CLI invdes exited {proc.returncode}: {proc.stdout!r} "
+                             f"{proc.stderr[-2000:]}")
+    cell["cli"] = {"final_loss": float(m.group(1)), "process_s": cli_s}
+    print(f"   invdes250: optimize 5 steps {optimize_s:.3f} s, history "
+          f"{[f'{v:.6f}' for v in history]}, warm step {cell['optimize']['warm_step_s']:.3f} s; "
+          f"{say(cell)}; gradient vs finite difference {fd_err:.3e}; CLI final loss "
+          f"{m.group(1)} ({cli_s:.1f} s)")
+
+    decade = decade_lowpass_problem(N=848, n_freqs=10, device=dev)
+    cell848 = steps_summary(decade, "invdes848")
+    traces.rmdir()
+    losses = [f"{step['loss']:.6f}" for step in cell848["steps"]]
+    print(f"   invdes848: losses {losses}, {say(cell848)}")
+    done(t0)
+    return {"invdes250": cell, "invdes848": cell848}
 
 
 def main() -> int:
@@ -1163,6 +1363,7 @@ def main() -> int:
              f"a step; all blocks shared one card: no copy between two cards, no scaling")
 
     fdfd = fdfd_phases(dev)
+    invdes = {"adjoint": adjoint_phase(dev), **invdes_phases(dev, tool("profile_fdfd"))}
 
     print(json.dumps({"kernels": [{
         "name": "fdtd_fused (K1)", "route": "cuda",
@@ -1241,6 +1442,8 @@ def main() -> int:
     }}))
     print(json.dumps({"fdfd": {"card": info["name"], "power_limit": info["power_limit"],
                                **fdfd}}))
+    print(json.dumps({"invdes": {"card": info["name"], "power_limit": info["power_limit"],
+                                 **invdes}}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,10 +5,14 @@ reference the port is tested against:
 
 - ``core``  — Yee-grid state, scenes and materials, sources, physics guards.
 - ``fdtd``  — the TE leapfrog step as torch ops and the rollout loop.
+- ``fdfd``  — steady-state solves: direct, FGMRES, refinement, the adjoint.
+- ``apps``  — inverse design on the differentiable FDFD solve.
+- ``parallel`` — the sharded FDTD rollout over a mesh of devices.
 - ``ops``   — hand-written CUDA kernels (built with nvcc at first use) and
-              their plain PyTorch versions.
+              their plain PyTorch versions; the FDFD operator, preconditioners,
+              Krylov solver and sparse-CSR layer as torch ops.
 - ``utils`` — timers and the GCells/s counter, timed with CUDA events.
-- ``viz``   — snapshot rendering and video export.
+- ``viz``   — snapshot rendering, video export and diagnostic plots.
 
 The package imports ``torch`` and numpy and never ``jax``.
 """

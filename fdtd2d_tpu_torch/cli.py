@@ -1,12 +1,14 @@
-"""Command-line entry point of the port (the ``fdtd`` and ``fdfd``
-subcommands so far):
+"""Command-line entry point of the port (the ``fdtd``, ``fdfd`` and
+``invdes`` subcommands so far):
 
     python -m fdtd2d_tpu_torch.cli fdtd --size 2048 --steps 2000 --device cuda
     fdtd2d-torch fdtd --size 200 --steps 1000 [--structure img.png] [--video out.mp4]
     fdtd2d-torch fdfd --size 512 --omega 17e9 --solver direct --device cuda [--out Ez.png]
+    fdtd2d-torch invdes --size 250 --steps 100 --freqs 10 [--decade] [--out resp.png]
 
-Flags and printed lines are those of ``fdtd2d fdtd`` and ``fdtd2d fdfd``
-(fdtd2d_tpu/cli.py), plus ``--device``. ``--out ""`` skips the plot.
+Flags and printed lines are those of ``fdtd2d fdtd``, ``fdtd2d fdfd`` and
+``fdtd2d invdes`` (fdtd2d_tpu/cli.py), plus ``--device``. ``--out ""``
+skips the plot.
 ``--backend`` takes the port's names and the JAX CLI's: ``jax`` is
 ``torch`` (the plain step) and ``pallas`` is ``fused`` (K1).
 """
@@ -76,6 +78,29 @@ def cmd_fdfd(args):
         print(f"wrote {args.out}")
 
 
+def cmd_invdes(args):
+    from fdtd2d_tpu_torch.apps.inverse_design import (decade_lowpass_problem,
+                                                      lowpass_problem, optimize)
+
+    if args.decade:
+        problem = decade_lowpass_problem(N=max(args.size, 848), n_freqs=args.freqs,
+                                         tol=args.tol, maxiter=args.maxiter,
+                                         device=args.device)
+    else:
+        problem = lowpass_problem(N=args.size, n_freqs=args.freqs, tol=args.tol,
+                                  maxiter=args.maxiter, device=args.device)
+    design, responses, history = optimize(
+        problem, steps=args.steps, lr=args.lr,
+        callback=lambda s, v, d: print(f"step {s}: loss {v:.6f}"))
+    print(f"final loss: {history[-1]:.6f}")
+    if args.out:
+        from fdtd2d_tpu_torch.viz.plots import plot_frequency_response
+
+        plot_frequency_response(problem.omegas, responses.cpu().numpy(),
+                                problem.ideal_response.cpu().numpy(), args.out)
+        print(f"wrote {args.out}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fdtd2d-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -113,6 +138,22 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--device", type=str, default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu")
     f.set_defaults(fn=cmd_fdfd)
+
+    f = sub.add_parser("invdes", help="inverse design (low-pass filter)")
+    f.add_argument("--size", type=int, default=250)
+    f.add_argument("--steps", type=int, default=100)
+    f.add_argument("--freqs", type=int, default=10)
+    f.add_argument("--lr", type=float, default=0.05)
+    f.add_argument("--tol", type=float, default=1e-6)
+    f.add_argument("--maxiter", type=int, default=400)
+    f.add_argument("--decade", action="store_true",
+                   help="the reference's full 10-100 GHz sweep on a grid "
+                        "fine enough for 100 GHz (N >= 848)")
+    f.add_argument("--out", type=str, default="frequency_response.png",
+                   help='plot of the final response; "" skips it')
+    f.add_argument("--device", type=str, default="cuda",
+                   help="torch device, e.g. cuda, cuda:1 or cpu")
+    f.set_defaults(fn=cmd_invdes)
     return p
 
 

@@ -1,8 +1,10 @@
 """FDFD steady-state solves (counterpart of ``fdtd2d_tpu/fdfd``): the direct
-sublattice block-Thomas solver, FDM-preconditioned FGMRES, and complex128
-iterative refinement. Not ported yet: the adjoint (autodiff), tiled
-Schwarz, the time-domain solver, and the compressed/HPS factor modes."""
+sublattice block-Thomas solver, FDM-preconditioned FGMRES (batched over
+omega for a stacked operator), complex128 iterative refinement, and the
+differentiable adjoint solve. Not ported yet: tiled Schwarz, the
+time-domain solver, and the compressed/HPS factor modes."""
 
+from fdtd2d_tpu_torch.fdfd.autodiff import solve_helmholtz_differentiable
 from fdtd2d_tpu_torch.ops.helmholtz import make_operator, HelmholtzOperator
 from fdtd2d_tpu_torch.fdfd.solver import (
     run_fdfd, shifted_laplacian_preconditioner, solve_fdfd,
@@ -28,4 +30,5 @@ __all__ = [
     "refine_batched",
     "RefineResult",
     "shifted_laplacian_preconditioner",
+    "solve_helmholtz_differentiable",
 ]

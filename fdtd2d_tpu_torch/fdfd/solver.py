@@ -11,6 +11,11 @@ Preconditioners:
 
 The JAX package's ``bicgstab`` and ``gmres`` methods are ``jax.scipy``
 library solvers; they are not ported yet and raise.
+
+A stacked operator (ops/helmholtz.py ``stack_operators``) solves its F
+systems as one batched FGMRES, the port's form of ``jax.vmap`` of the JAX
+solve: ``b`` and ``x0`` are then (F, Nx, Ny), and the result's residuals,
+``converged`` and iterations are lists, one entry a member.
 """
 
 from __future__ import annotations
@@ -44,11 +49,14 @@ def shifted_laplacian_preconditioner(
     dev = op.device
     im_ref = op.inv_mu.mean()
     eps_ref = op.eps.mean()
+    w2 = op.omega**2
+    if op.batch_shape:
+        w2 = w2[:, None, None]
     kr = torch.arange(1, Nx + 1, dtype=torch.float64, device=dev)
     kc = torch.arange(1, Ny + 1, dtype=torch.float64, device=dev)
     lam_r = 4.0 * op.inv_2dy.double()**2 * torch.cos(math.pi * kr / (Nx + 1)) ** 2
     lam_c = 4.0 * op.inv_2dx.double()**2 * torch.cos(math.pi * kc / (Ny + 1)) ** 2
-    shift = beta * (op.omega**2) * eps_ref
+    shift = beta * w2 * eps_ref
     denom = (im_ref * (lam_r[:, None] + lam_c[None, :])).to(op.dtype) - shift
 
     powers_of_i = torch.tensor([1, 1j, -1, -1j], dtype=op.dtype).to(dev)
@@ -59,7 +67,7 @@ def shifted_laplacian_preconditioner(
     norm = 4.0 / ((Nx + 1) * (Ny + 1))
 
     def minv(r: torch.Tensor) -> torch.Tensor:
-        r2 = r.reshape(Nx, Ny).to(op.dtype)
+        r2 = r.reshape(op.field_shape).to(op.dtype)
         rhat = dst2d(r2 * w_inv) * norm      # V^{-1} r
         x = w * dst2d(rhat / denom)          # V xhat
         return x.to(op.dtype).reshape(r.shape)
@@ -78,6 +86,9 @@ def jacobi_preconditioner(op: HelmholtzOperator) -> Callable[[torch.Tensor], tor
 
 @dataclasses.dataclass(frozen=True)
 class SolveResult:
+    """A solve's field and figures; for a stacked operator the field is
+    (F, Nx, Ny) and each figure a list with one entry a member."""
+
     x: torch.Tensor            # (Nx, Ny) complex field
     relative_residual: float   # true residual in the solve's precision
     converged: bool            # relative_residual < 10 * tol
@@ -123,7 +134,8 @@ def solve_fdfd(
     restart: int = 40,
     x0: Optional[torch.Tensor] = None,
 ) -> SolveResult:
-    """Solve A x = b. ``b`` may be (Nx, Ny) or flattened; returns (Nx, Ny) x.
+    """Solve A x = b. ``b`` may be (Nx, Ny) or flattened; returns (Nx, Ny) x
+    ((F, Nx, Ny) for a stacked operator, whose ``b`` is (F, Nx, Ny)).
 
     ``preconditioner``: "fdm" (default), "dst", "jacobi", None, or any
     callable (e.g. a prebuilt :class:`~fdtd2d_tpu_torch.ops.fdm.FDMPreconditioner`).
@@ -140,12 +152,15 @@ def solve_fdfd(
         M = shifted_laplacian_preconditioner(op)
     elif builtin == "jacobi":
         M = jacobi_preconditioner(op)
-    b2 = b.reshape(op.shape).to(op.dtype)
+    b2 = b.reshape(op.field_shape).to(op.dtype)
     if x0 is not None:
-        x0 = x0.reshape(op.shape).to(op.dtype)
-    out = fgmres(op.apply, b2, M, x0=x0, restart=restart, maxiter=maxiter, tol=tol)
+        x0 = x0.reshape(op.field_shape).to(op.dtype)
+    batched = bool(op.batch_shape)
+    out = fgmres(op.apply, b2, M, x0=x0, restart=restart, maxiter=maxiter, tol=tol,
+                 batched=batched)
     res = out.relative_residual
-    return SolveResult(x=out.x, relative_residual=res, converged=res < 10 * tol,
+    converged = [r < 10 * tol for r in res] if batched else res < 10 * tol
+    return SolveResult(x=out.x, relative_residual=res, converged=converged,
                        iterations=out.iterations)
 
 

@@ -16,6 +16,11 @@ inverse of A_ref applied as four dense matrix multiplies per call:
 As a preconditioner for heterogeneous media the error comes only from the
 eps/mu deviation from the reference constants, so Krylov iteration counts
 depend on material contrast, not on grid size or PML strength.
+
+A stacked preconditioner (``stack_preconditioners``, or
+``fdm_preconditioner_for`` of a stacked operator) holds one factor set per
+omega: ``Pr``/``Pri`` (F, Nx, Nx), ``PcT``/``PcTi`` (F, Ny, Ny), ``D``
+(F, Nx, Ny), applied to (F, Nx, Ny) with batched matmuls.
 """
 
 from __future__ import annotations
@@ -58,16 +63,15 @@ def _fdm_factors(n: int, d: float, omega: float, pml_thickness: int,
 class FDMPreconditioner:
     """Exact uniform-medium UPML inverse as dense factors on the device."""
 
-    Pr: torch.Tensor     # (Nx, Nx)
+    Pr: torch.Tensor     # (Nx, Nx), (F, Nx, Nx) when stacked
     Pri: torch.Tensor
-    PcT: torch.Tensor    # (Ny, Ny)
+    PcT: torch.Tensor    # (Ny, Ny), (F, Ny, Ny) when stacked
     PcTi: torch.Tensor
-    D: torch.Tensor      # (Nx, Ny) spectral inverse
+    D: torch.Tensor      # (Nx, Ny) spectral inverse, (F, Nx, Ny) when stacked
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        Nx, Ny = self.D.shape
         shape = r.shape
-        R = r.reshape(Nx, Ny).to(self.Pr.dtype)
+        R = r.reshape(self.D.shape).to(self.Pr.dtype)
         Y = (self.Pri @ R @ self.PcTi) * self.D
         return (self.Pr @ Y @ self.PcT).reshape(shape)
 
@@ -98,14 +102,23 @@ def fdm_preconditioner(
     )
 
 
+def stack_preconditioners(Ms) -> FDMPreconditioner:
+    """One preconditioner stacked over the members of ``Ms`` (one per omega
+    of a stacked operator, in its order)."""
+    return FDMPreconditioner(**{f.name: torch.stack([getattr(M, f.name) for M in Ms])
+                                for f in dataclasses.fields(FDMPreconditioner)})
+
+
 def fdm_preconditioner_for(op: HelmholtzOperator) -> FDMPreconditioner:
     """FDM preconditioner matched to an operator's parameters (its mean eps
-    and 1/mu, taken on the host in the operator's precision)."""
+    and 1/mu, taken on the host in the operator's precision); stacked over
+    omega when the operator is."""
     Nx, Ny = op.shape
-    eps_ref = float(np.mean(op.eps.cpu().numpy()))
-    mu_ref = 1.0 / float(np.mean(op.inv_mu.cpu().numpy()))
+    eps_ref = float(np.mean(op.eps.detach().cpu().numpy()))
+    mu_ref = 1.0 / float(np.mean(op.inv_mu.detach().cpu().numpy()))
     dx = 1.0 / (2.0 * float(op.inv_2dx))
     dy = 1.0 / (2.0 * float(op.inv_2dy))
-    return fdm_preconditioner(Nx, Ny, dx, dy, float(op.omega), op.pml_thickness,
-                              op.sigma_max, op.m, eps_ref=eps_ref, mu_ref=mu_ref,
-                              dtype=op.dtype, device=op.device)
+    Ms = [fdm_preconditioner(Nx, Ny, dx, dy, omega, op.pml_thickness, op.sigma_max, op.m,
+                             eps_ref=eps_ref, mu_ref=mu_ref, dtype=op.dtype, device=op.device)
+          for omega in op.omega.reshape(-1).tolist()]
+    return stack_preconditioners(Ms) if op.batch_shape else Ms[0]

@@ -19,6 +19,12 @@ Complex dtypes are native: ``make_operator(..., dtype=torch.complex128)``
 is the float64 operator that iterative refinement evaluates residuals with
 (the JAX package's split-complex ``HelmholtzF64``, which exists only because
 its TPU cannot compile complex128). ``apply`` takes leading batch dims.
+
+A *stacked* operator (``stack_operators``) carries a leading batch over omega:
+``omega`` is (F,), ``inv_s_row`` (F, Nx) and ``inv_s_col`` (F, Ny), while
+``eps`` and ``inv_mu`` stay (Nx, Ny), shared by every member; its ``apply``
+takes (..., F, Nx, Ny). It is the port's form of the JAX package's
+``jax.tree.map(jnp.stack, *ops)`` under ``vmap`` (apps/inverse_design.py).
 """
 
 from __future__ import annotations
@@ -73,7 +79,7 @@ class HelmholtzOperator:
     inv_mu: torch.Tensor       # (Nx, Ny) real
     inv_s_row: torch.Tensor    # (Nx,) complex — 1/s along the row axis
     inv_s_col: torch.Tensor    # (Ny,) complex — 1/s along the column axis
-    omega: torch.Tensor        # 0-d
+    omega: torch.Tensor        # 0-d, or (F,) when stacked
     inv_2dx: torch.Tensor      # 0-d: 1/(2*dx), column-axis spacing
     inv_2dy: torch.Tensor      # 0-d: 1/(2*dy), row-axis spacing
     # PML metadata (carried so preconditioners can be rebuilt)
@@ -86,6 +92,24 @@ class HelmholtzOperator:
         return tuple(self.eps.shape)
 
     @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        """() for one operator, (F,) for a stack over omega."""
+        return tuple(self.omega.shape)
+
+    @property
+    def field_shape(self) -> Tuple[int, ...]:
+        """The shape of a field the operator applies to: batch + (Nx, Ny)."""
+        return self.batch_shape + self.shape
+
+    def _factors(self):
+        """(1/s_col, 1/s_row, omega^2), broadcastable against (..., Nx, Ny)
+        and, when stacked, against (..., F, Nx, Ny)."""
+        w2 = self.omega**2
+        if w2.ndim:
+            w2 = w2[:, None, None]
+        return self.inv_s_col[..., None, :], self.inv_s_row[..., :, None], w2
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.inv_s_row.dtype
 
@@ -94,14 +118,14 @@ class HelmholtzOperator:
         return self.eps.device
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """A @ x for x of shape (..., Nx, Ny) (complex)."""
-        isc = self.inv_s_col[None, :]
-        isr = self.inv_s_row[:, None]
+        """A @ x for x of shape (..., Nx, Ny) (complex); (..., F, Nx, Ny)
+        when the operator is stacked."""
+        isc, isr, w2 = self._factors()
         tc = _dcol(x * isc, self.inv_2dx)
         tc = _dcol(tc * self.inv_mu, self.inv_2dx) * isc
         tr = _drow(x * isr, self.inv_2dy)
         tr = _drow(tr * self.inv_mu, self.inv_2dy) * isr
-        return -(tc + tr) - (self.omega**2) * self.eps * x
+        return -(tc + tr) - w2 * self.eps * x
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Flattened matvec (for Krylov drivers operating on vectors)."""
@@ -114,7 +138,9 @@ class HelmholtzOperator:
         return b - self.apply(x)
 
     def diagonal(self) -> torch.Tensor:
-        """diag(A) as an (Nx, Ny) array (for Jacobi preconditioning)."""
+        """diag(A) as an (Nx, Ny) array, (F, Nx, Ny) when stacked (for Jacobi
+        preconditioning)."""
+        isc, isr, w2 = self._factors()
         a_c = self.inv_2dx**2
         a_r = self.inv_2dy**2
         im = self.inv_mu
@@ -123,9 +149,9 @@ class HelmholtzOperator:
         im_cp = F.pad(im[:, 1:], (0, 1))    # 1/mu at col j+1
         im_rm = F.pad(im[:-1, :], (0, 0, 1, 0))
         im_rp = F.pad(im[1:, :], (0, 0, 0, 1))
-        dc = (self.inv_s_col[None, :] ** 2) * a_c * (im_cm + im_cp)
-        dr = (self.inv_s_row[:, None] ** 2) * a_r * (im_rm + im_rp)
-        return dc + dr - (self.omega**2) * self.eps
+        dc = (isc**2) * a_c * (im_cm + im_cp)
+        dr = (isr**2) * a_r * (im_rm + im_rp)
+        return dc + dr - w2 * self.eps
 
 
 def _real_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -175,3 +201,27 @@ def operator_from_numpy(eps, inv_mu, inv_s_row, inv_s_col, omega, inv_2dx, inv_2
                              inv_s_col=t(inv_s_col), omega=t(omega), inv_2dx=t(inv_2dx),
                              inv_2dy=t(inv_2dy), pml_thickness=pml_thickness,
                              sigma_max=sigma_max, m=m)
+
+
+def stack_operators(ops) -> HelmholtzOperator:
+    """One operator stacked over the omegas of ``ops`` (the counterpart of
+    ``jax.tree.map(jnp.stack, *ops)`` in the JAX package's
+    apps/inverse_design.py ``_stack_ops``). The members must share eps, 1/mu,
+    the grid spacing and the PML metadata; they are kept once, unstacked."""
+    first = ops[0]
+    for op in ops[1:]:
+        same = (op.eps is first.eps or torch.equal(op.eps, first.eps)) and (
+            op.inv_mu is first.inv_mu or torch.equal(op.inv_mu, first.inv_mu))
+        if not (same and torch.equal(op.inv_2dx, first.inv_2dx)
+                and torch.equal(op.inv_2dy, first.inv_2dy)
+                and (op.pml_thickness, op.sigma_max, op.m)
+                == (first.pml_thickness, first.sigma_max, first.m)):
+            raise ValueError("stack_operators: the operators differ in more than omega")
+    if any(op.batch_shape for op in ops):
+        raise ValueError("stack_operators: the operators are already stacked")
+    return dataclasses.replace(
+        first,
+        omega=torch.stack([op.omega for op in ops]),
+        inv_s_row=torch.stack([op.inv_s_row for op in ops]),
+        inv_s_col=torch.stack([op.inv_s_col for op in ops]),
+    )

@@ -3,6 +3,7 @@
 import re
 
 import pytest
+import torch
 
 from fdtd2d_tpu.cli import main as jax_main
 from fdtd2d_tpu_torch.cli import main
@@ -71,3 +72,24 @@ def test_cli_takes_the_jax_backend_names(capsys, jax_name, ours):
     assert jax_main(ARGS + ["--backend", jax_name]) == 0
     ref = _printed(capsys.readouterr().out, "max |Ez|")
     assert abs(alias - ref) <= 1e-4 * abs(ref)
+
+
+def test_cli_invdes_matches_jax(capsys):
+    """``invdes --size 40 --steps 2 --freqs 3 --out ""``: the JAX CLI's
+    printed lines, each loss within 1e-6 of its own, and no plot."""
+    args = ["invdes", "--size", "40", "--steps", "2", "--freqs", "3", "--out", ""]
+    assert jax_main(args) == 0
+    ref = capsys.readouterr().out
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # a 40^2 grid gains nothing from intra-op threads
+    try:
+        assert main(args + ["--device", "cpu"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    pattern = re.compile(r"^(step \d+: loss|final loss:) (\S+)$", re.M)
+    ours, theirs = pattern.findall(out), pattern.findall(ref)
+    assert [k for k, _ in ours] == [k for k, _ in theirs] == [
+        "step 0: loss", "step 1: loss", "final loss:"]
+    assert all(abs(float(a) - float(b)) <= 1e-6 for (_, a), (_, b) in zip(ours, theirs))
+    assert out.count("\n") == ref.count("\n") == 3 and "wrote" not in out

@@ -137,3 +137,47 @@ def test_profile_fdtd_takes_frames():
     assert (args.size, args.steps, args.frames) == (200, 1000, 200)
     assert args.backends == ["fused", "ttiled"]
     assert profile_fdtd.parse_args([]).frames == 0
+
+
+def test_fdfd_invdes_path_takes_the_steps_optimize_takes():
+    """``--paths invdes``: its options, and ``invdes_steps`` on the CPU at a
+    small size (no trace): the losses of ``optimize``'s first steps, warm
+    starts that cut the forward iterations, per-member iterations."""
+    import torch
+
+    from fdtd2d_tpu_torch.apps.inverse_design import lowpass_problem, optimize
+
+    args = profile_fdfd.parse_args(["--paths", "invdes", "--freqs", "3", "--decade"])
+    assert args.paths == ["invdes"] and args.freqs == 3 and args.decade and args.size is None
+    problem = lowpass_problem(N=40, n_freqs=2, device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        steps = profile_fdfd.invdes_steps(problem, 2)
+        _, _, history = optimize(problem, steps=2)
+    finally:
+        torch.set_num_threads(threads)
+    assert [s["loss"] for s in steps] == history
+    assert all(len(s["forward_iterations"]) == len(s["adjoint_iterations"]) == 2 for s in steps)
+    assert steps[1]["forward_iterations"] <= steps[0]["forward_iterations"]
+    assert steps[0]["peak_gb"] is None and "profile" not in steps[-1]
+
+
+def test_bench_batched_dot_forms_agree_and_need_the_card(capsys):
+    """tools/bench_batched_dot.py: its four forms of the batched complex dot
+    agree on the CPU with a per-member vdot; timing needs the card."""
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_batched_dot", Path(__file__).resolve().parents[1] / "tools" / "bench_batched_dot.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    assert bench.shape_list("10x250,1x512") == [(10, 250), (1, 512)]
+    g = torch.Generator().manual_seed(0)
+    a, c = (torch.randn(3, 5, 5, dtype=torch.complex128, generator=g) for _ in range(2))
+    want = torch.stack([torch.vdot(a[f].reshape(-1), c[f].reshape(-1)) for f in range(3)])
+    for name, fn in bench.forms(3).items():
+        assert torch.allclose(fn(a, c), want, rtol=1e-12, atol=0), name
+    if not torch.cuda.is_available():
+        assert bench.main([]) == 1
+        assert "no CUDA device" in capsys.readouterr().err

@@ -206,8 +206,11 @@ def test_port_imports_no_jax():
             "fdtd2d_tpu_torch.fdfd.direct, fdtd2d_tpu_torch.fdfd.refine, "
             "fdtd2d_tpu_torch.fdfd.solver, fdtd2d_tpu_torch.ops.helmholtz, "
             "fdtd2d_tpu_torch.ops.dst, fdtd2d_tpu_torch.ops.fdm, "
-            "fdtd2d_tpu_torch.ops.krylov, fdtd2d_tpu_torch.core.scenes\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'fdtd2d_tpu'))\n"
+            "fdtd2d_tpu_torch.ops.krylov, fdtd2d_tpu_torch.core.scenes, "
+            "fdtd2d_tpu_torch.fdfd.autodiff, fdtd2d_tpu_torch.apps.inverse_design, "
+            "fdtd2d_tpu_torch.ops.sparse, fdtd2d_tpu_torch.viz.plots\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'fdtd2d_tpu', 'optax', 'flax'))\n"
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)

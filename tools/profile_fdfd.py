@@ -1,6 +1,7 @@
 """Device-time profile of the FDFD solves on the GPU, with torch.profiler.
 
     python tools/profile_fdfd.py [--size 512] [--paths factor,direct,fgmres] [--out DIR]
+    python tools/profile_fdfd.py --paths invdes [--size 250] [--freqs 10] [--decade]
 
 On the scene of ``bench.py``'s fdfd512 rows (512^2 by default: a 2.5x
 dielectric block, a point source at the centre carrying -1j*omega, dx 1e-3 m,
@@ -12,7 +13,17 @@ omega 17e9, PML 40), for each path of ``--paths``:
   with ``rhs_scale=1.0, refine_target=1e-6`` under torch.profiler;
 - ``fgmres``: FDM-preconditioned FGMRES in complex64 (restart 20, tol 1e-6,
   maxiter 3000, the fdfd512iter row), one warm-up solve, then one under
-  torch.profiler.
+  torch.profiler;
+- ``invdes`` (not in the default list): inverse design on
+  ``lowpass_problem(N=--size, n_freqs=--freqs)`` (``--size`` 250 unless
+  given; ``--decade``: ``decade_lowpass_problem``, N >= 848), complex64:
+  a cold optimization step, a warm one, then a warm one under
+  torch.profiler, each as ``optimize`` takes it (``invdes_steps``). Its line
+  adds the steps' seconds, losses, forward and adjoint FGMRES iterations and
+  residuals per member, peak device memory, and ``launches_per_iteration``: the profiled
+  step's launches over its batched FGMRES iterations (the most any member
+  took, forward plus adjoint), which says whether the batched solve is
+  host bound.
 
 It writes each window's Chrome trace to ``--out`` (by default ``profile/`` in
 the repo's git-ignored output directory) and prints one JSON line per path,
@@ -26,6 +37,8 @@ time, and the solve's own result (residual trace or iterations).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -36,8 +49,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from profile_fdtd import summarize  # noqa: E402
 
-PATHS = ("factor", "direct", "fgmres")
+PATHS = ("factor", "direct", "fgmres", "invdes")
+DEFAULT_PATHS = ["factor", "direct", "fgmres"]
 TOP = 12
+ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
 
 def path_list(text: str):
@@ -51,8 +66,12 @@ def path_list(text: str):
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--size", type=int, default=512)
-    parser.add_argument("--paths", type=path_list, default=list(PATHS))
+    parser.add_argument("--size", type=int, default=None,
+                        help="grid side (default 512; 250 for invdes)")
+    parser.add_argument("--paths", type=path_list, default=list(DEFAULT_PATHS))
+    parser.add_argument("--freqs", type=int, default=10, help="invdes: frequencies")
+    parser.add_argument("--decade", action="store_true",
+                        help="invdes: the 10-100 GHz decade sweep (N >= 848)")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "profile")
     return parser.parse_args(argv)
 
@@ -69,6 +88,53 @@ def window_summary(trace: Path, wall_s: float) -> dict:
             "kernel_names": len(s["kernels"]), "kernels": top}
 
 
+def invdes_steps(problem, steps: int, *, dtype=torch.complex64, lr: float = 0.05,
+                 opt_tol: float = 1e-4, trace: Path | None = None) -> list:
+    """``steps`` optimization steps of ``problem`` as ``optimize`` takes them
+    (Adam with optax's defaults from the box midpoint 2.0, the loop at
+    ``opt_tol``, each step's fields warm-starting the next); with ``trace``,
+    the last step runs under torch.profiler and its Chrome trace goes there.
+    One dict a step: host seconds (device synchronized), loss, forward and
+    adjoint FGMRES iterations and relative residuals per member, peak device
+    memory; the profiled step adds its window summary and
+    ``launches_per_iteration``."""
+    from fdtd2d_tpu_torch.apps.inverse_design import make_response_fn
+    from fdtd2d_tpu_torch.utils.metrics import Timer
+
+    dev = problem.device
+    _, loss = make_response_fn(dataclasses.replace(problem, tol=max(problem.tol, opt_tol)),
+                               dtype)
+    rs, cs = problem.design_region
+    design = torch.full((rs.stop - rs.start, cs.stop - cs.start), 2.0, device=dev,
+                        requires_grad=True)
+    opt = torch.optim.Adam([design], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    x0s, out = None, []
+    for step in range(steps):
+        profiled = trace is not None and step == steps - 1
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        prof = (torch.profiler.profile(activities=ACTIVITIES) if profiled
+                else contextlib.nullcontext())
+        with prof, Timer(dev) as timer:
+            value, design.grad, x0s = loss.value_and_grad(design, x0s)
+            opt.step()
+            with torch.no_grad():
+                design.clamp_(1.0, 3.0)
+            value = float(value)
+        rec = {"step": step, "seconds": timer.seconds, "loss": value,
+               **{k: list(v) for k, v in loss.info.items()},
+               "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                           if dev.type == "cuda" else None)}
+        if profiled:
+            prof.export_chrome_trace(str(trace))
+            summary = window_summary(trace, timer.seconds)
+            iterations = max(rec["forward_iterations"]) + max(rec["adjoint_iterations"])
+            rec["profile"] = {**summary,
+                              "launches_per_iteration": summary["launches"] / iterations}
+        out.append(rec)
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -83,16 +149,33 @@ def main(argv=None) -> int:
     from fdtd2d_tpu_torch.ops.helmholtz import make_operator
     from fdtd2d_tpu_torch.utils.metrics import Timer, device_info
 
-    N, dx, omega, dev = args.size, 1e-3, 17e9, torch.device("cuda:0")
+    dev = torch.device("cuda:0")
+    args.out.mkdir(parents=True, exist_ok=True)
+    if "invdes" in args.paths:
+        from fdtd2d_tpu_torch.apps.inverse_design import decade_lowpass_problem, lowpass_problem
+
+        if args.decade:
+            problem = decade_lowpass_problem(N=max(args.size or 848, 848), n_freqs=args.freqs,
+                                             device=dev)
+        else:
+            problem = lowpass_problem(N=args.size or 250, n_freqs=args.freqs, device=dev)
+        n_i = problem.eps_base.shape[0]
+        trace = args.out / f"trace_invdes_{n_i}_{args.freqs}.json"
+        steps = invdes_steps(problem, 3, trace=trace)
+        print(json.dumps({"path": "invdes", "size": n_i, "freqs": args.freqs,
+                          "decade": args.decade, "steps": steps,
+                          "trace_file": str(trace.relative_to(ROOT))
+                          if trace.is_relative_to(ROOT) else str(trace)}))
+    N, dx, omega = args.size or 512, 1e-3, 17e9
     eps = np.full((N, N), constants.EPSILON_0)
     eps[N // 3 : 2 * N // 3, N // 4 : N // 2] *= 2.5
     mu = np.full((N, N), constants.MU_0)
     src = np.zeros((N, N), np.complex128)
     src[N // 2, N // 2] = -1j * omega
-    args.out.mkdir(parents=True, exist_ok=True)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
     for path in args.paths:
+        if path == "invdes":
+            continue
         if path == "factor":
             def run():
                 return {"factor_growth": DirectSolver(eps, mu, dx, dx, omega,
@@ -113,7 +196,7 @@ def main(argv=None) -> int:
                 return {"iterations": res.iterations,
                         "relative_residual": res.relative_residual}
         run()
-        with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.profile(activities=ACTIVITIES) as prof:
             with Timer(dev) as timer:
                 result = run()
         trace = args.out / f"trace_fdfd_{path}_{N}.json"
