@@ -186,6 +186,30 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
     ``decade_lowpass_problem(N=848, n_freqs=10)`` (the 10-100 GHz sweep)
     through ``invdes_steps``: a cold step, a warm one and a profiled one,
     with the same figures. (Phases 19 and 20 run after phase 15.)
+21. Tiled Schwarz (fdfd/tiled.py): at 160^2 (tests/test_tiled.py's scene,
+    patches of 64, padding 24, local PML 10) in complex128, the refined
+    ``TiledSolver`` solve and ``run_fdfd_tiled``'s additive and
+    multiplicative sweeps on the card against the port's CPU run (<= 1e-6;
+    equal outer iterations and probe decision). Then bench.py's
+    ``tiled1024`` and ``tiled1024approx`` rows at full size
+    (tools/profile_fdfd.py's ``tiled_cell``: the 1.5x block scene, 17 GHz,
+    dx 1 mm, 100 patches of 160^2): a cold, a timed warm and a profiled warm
+    solve; ``trace[-2] < 1e-5`` (exact) and ``trace[-1] < 1e-2`` (approx),
+    with the returned field's true residual recomputed in complex128; the
+    probe's contractions and decision, outer iterations a round, seconds,
+    launches an outer iteration, busy share and peak memory.
+22. The time domain (fdfd/timedomain.py): one wave run at 96^2 on the card
+    against the CPU's (<= 1e-4); ms a wave step at 4096^2 (CUDA events over
+    200 steps) beside its bound (36 B a cell at 3.35 TB/s: 0.180 ms) and
+    launches a step (20 steps under torch.profiler); one timed 4096^2
+    application with its residual; then ``timedomain4096`` (2.5 transits,
+    refined to ``trace[-2] < 1e-6``) after a small warm-up solve. Where
+    ``TD4096_ROUNDS`` applications would take the script past half its time
+    limit, the solve runs at 2048^2 and the 4096^2 solve is left to
+    ``tools/profile_fdfd.py --paths timedomain --size 4096``.
+23. The CLI: ``tiled --size 512`` and ``fdfd --size 512 --solver
+    timedomain``, ``--device cuda --out ""``, each in its own process; the
+    refined iterate's residual <= 1e-6 in each.
 
 Tolerance: 1e-5 relative (max |kernel - plain| / max |plain|), the bound of
 the float64 oracle tests (tests/test_fdtd_oracle.py). The kernel and the
@@ -205,7 +229,8 @@ bounds and tile counts of phases 6-9, one with the parity and the cells of
 phases 17-18,
 one with the times, residuals and peak memory of phases 10-15, one
 (``invdes``) with the errors, times, iterations, launches and peak memory
-of phases 19-20, and the
+of phases 19-20, one (``tiled_timedomain``) with the parity, probe, times,
+iterations, rounds, launches and peak memory of phases 21-23, and the
 nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -796,8 +821,187 @@ def invdes_phases(dev, profile_fdfd) -> dict:
     return {"invdes250": cell, "invdes848": cell848}
 
 
+def tiled_phase(dev, profile_fdfd) -> dict:
+    """Phase 21: the tiled Schwarz solver on the card, against the port's
+    CPU run at 160^2 in complex128, then bench.py's tiled1024 and
+    tiled1024approx rows at full size (tools/profile_fdfd.py's
+    ``tiled_cell``)."""
+    from fdtd2d_tpu_torch import constants
+    from fdtd2d_tpu_torch.fdfd.tiled import TiledSolver, run_fdfd_tiled
+
+    t0 = phase("21. tiled Schwarz: 160^2 on the card vs the CPU in complex128 (krylov, "
+               "additive, multiplicative); tiled1024 and tiled1024approx at full size")
+    N, dx, omega = 160, 1e-3, 17e9
+    eps = np.full((N, N), constants.EPSILON_0)
+    eps[60:100, 40:70] *= 2.5
+    mu = np.full((N, N), constants.MU_0)
+    src = np.zeros((N, N))
+    src[N // 2, N // 2] = 10.0
+    small = dict(patch_size=64, padding=24, pml_thickness=10, dtype=torch.complex128)
+    runs = {}
+    for where in (dev, "cpu"):
+        solver = TiledSolver(eps, mu, dx, dx, omega, device=where, **small)
+        x, trace = solver.solve(src, solver_tol=1e-8, solver_maxiter=120, refine_target=1e-10)
+        runs[str(where)] = (x.cpu(), trace, solver.outer_iterations, solver._patch_decision)
+    (x_d, trace_d, its_d, dec_d), (x_c, _, its_c, dec_c) = runs.values()
+    parity = {"krylov": complex_rel_err(x_d, x_c)}
+    if not (parity["krylov"] <= 1e-6 and trace_d[-2] <= 1e-10 and its_d == its_c
+            and dec_d == dec_c):
+        raise AssertionError(f"tiled 160^2 c128: card vs CPU {parity['krylov']:.3e}, trace "
+                             f"{trace_d}, outer iterations {its_d} vs {its_c}")
+    stationary = dict(n_passes=2, relax=0.5, tol=1e-9, solver_tol=1e-6, solver_maxiter=60)
+    for mode in ("additive", "multiplicative"):
+        (xa, da), (xb, db) = (run_fdfd_tiled(eps, mu, dx, dx, omega, src, mode=mode,
+                                             device=where, **small, **stationary)
+                              for where in (dev, "cpu"))
+        parity[mode] = complex_rel_err(xa.cpu(), xb)
+        if not (parity[mode] <= 1e-6 and np.allclose(da, db, rtol=1e-6, atol=0)):
+            raise AssertionError(f"tiled {mode} 160^2 c128: card vs CPU {parity[mode]:.3e}, "
+                                 f"deltas {da} vs {db}")
+    traces = ROOT / "build" / "schwarz_traces"  # git-ignored; summarized, then removed
+    traces.mkdir(parents=True, exist_ok=True)
+    cells = {}
+    for name, approx in (("tiled1024", False), ("tiled1024approx", True)):
+        trace = traces / f"{name}.json"
+        cell = profile_fdfd.tiled_cell(1024, approx=approx, dev=dev, trace=trace)
+        trace.unlink()
+        res = cell["trace"]
+        ok = (res[-1] < 1e-2 and cell["c128_residual"] < 1e-2 if approx else
+              res[-2] < 1e-5 and abs(cell["c128_residual"] - res[-1]) <= 1e-3 * res[-1])
+        if not ok:
+            raise AssertionError(f"{name}: trace {res}, complex128 residual of the returned "
+                                 f"field {cell['c128_residual']:.3e}")
+        cell["profiled"]["kernels"] = {k[:80]: v for k, v in
+                                       list(cell["profiled"]["kernels"].items())[:8]}
+        cells[name] = cell
+        print(f"   {name}: {cell['patches']} patches of {cell['window']}^2, probe coarse "
+              f"{cell['probe']['coarse']:.4f} two-level {cell['probe']['two_level']:.4f} -> "
+              f"{cell['probe']['decision']}; cold {cell['cold_solve_s']:.3f} s, warm "
+              f"{cell['warm_solve_s']:.3f} s; trace {[f'{t:.2e}' for t in res]}, outer "
+              f"iterations {cell['outer_iterations']} (restart {cell['outer_restart']}); "
+              f"c128 residual {cell['c128_residual']:.3e}; "
+              f"{cell['launches_per_outer_iteration']:.1f} launches an outer iteration, busy "
+              f"{cell['busy_share_unprofiled']:.3f} ({cell['profiled']['busy_share']:.3f} "
+              f"profiled); peak {cell['peak_gb']:.3f} GB")
+    traces.rmdir()
+    done(t0, "160^2 card vs CPU " + ", ".join(f"{k} {v:.3e}" for k, v in parity.items()) +
+         f"; outer iterations {its_d}")
+    return {"parity_160_c128": parity, "outer_iterations_160": its_d, **cells}
+
+
+# refinement rounds of timedomain4096 to 1e-6 (14 in the first H100 run; the
+# contraction a round falls from 1.3e-2 to 0.7, so the first round does not
+# predict the count)
+TD4096_ROUNDS = 15
+
+
+def timedomain_phase(dev, profile_fdfd, t_script: float, budget_s: float = 600.0) -> dict:
+    """Phase 22: the time-domain solver on the card: one wave run at 96^2
+    against the CPU's, ms a wave step at 4096^2 beside its bound, one timed
+    4096^2 application with its residual, and bench.py's timedomain4096
+    solve, at 2048^2 where TD4096_ROUNDS applications at 4096^2 would take
+    the script past ``budget_s`` (half its time limit; the 4096^2 solve is
+    then tools/profile_fdfd.py's ``--paths timedomain --size 4096``)."""
+    from fdtd2d_tpu_torch.fdfd.timedomain import (TimeDomainSolver, _split_sub,
+                                                  build_wave_bundle, wave_run)
+
+    t0 = phase("22. time domain: a 96^2 wave run vs the CPU; ms a wave step at 4096^2; "
+               "timedomain4096 (transits 2.5, refined to 1e-6)")
+    omega, dx, out = 17e9, 1e-3, {}
+    eps, mu, src = profile_fdfd.block_scene(96)
+    b = torch.tensor(-1j * omega * src, dtype=torch.complex64)
+    b_sub = _split_sub(b / torch.linalg.vector_norm(b))
+    x = {str(where): wave_run(build_wave_bundle(eps, mu, dx, dx, omega, device=where),
+                              b_sub.to(where)).cpu() for where in (dev, "cpu")}
+    out["wave_run_96_rel_err"] = complex_rel_err(*x.values())
+    if not out["wave_run_96_rel_err"] <= 1e-4:
+        raise AssertionError(f"wave_run 96^2 card vs CPU: {out['wave_run_96_rel_err']:.3e}")
+
+    N = 4096
+    eps, mu, src = profile_fdfd.block_scene(N)
+    torch.cuda.reset_peak_memory_stats(dev)
+    solver = TimeDomainSolver(eps, mu, dx, dx, omega, transits=2.5, device=dev)
+    trace = ROOT / "build" / "wave_step.json"
+    trace.parent.mkdir(exist_ok=True)
+    step = {"ms": profile_fdfd.wave_step_ms(solver.bundle),
+            "bound_ms": profile_fdfd.WAVE_STEP_BYTES * N * N / profile_fdfd.HBM_BYTES_S * 1e3,
+            **{k: v for k, v in profile_fdfd.wave_step_profile(solver.bundle, trace).items()
+               if k in ("launches_per_step", "busy_share", "device_busy_ms", "wall_ms")}}
+    trace.unlink()
+    step["share_of_bound"] = step["bound_ms"] / step["ms"]
+    out["step_4096"] = step
+    print(f"   wave step at {N}^2: {step['ms']:.4f} ms (bound {step['bound_ms']:.4f} ms: "
+          f"{profile_fdfd.WAVE_STEP_BYTES} B a cell at 3.35 TB/s; share "
+          f"{step['share_of_bound']:.3f}), {step['launches_per_step']:.1f} launches a step, "
+          f"busy {step['busy_share']:.3f} under the profiler")
+
+    e256, m256, s256 = profile_fdfd.block_scene(256)  # warm-up: no compile to amortize
+    TimeDomainSolver(e256, m256, dx, dx, omega, device=dev).solve(s256, refine_target=1e-6)
+    b64 = torch.as_tensor(src, device=dev).to(torch.complex128) * (-1j * omega)
+    unit = b64 / torch.linalg.vector_norm(b64)
+    first, app_s = timed(lambda: solver.precondition(unit.to(torch.complex64)), dev)
+    contraction = float(torch.linalg.vector_norm(solver.op64.residual(unit, first.to(
+        torch.complex128))))
+    estimate = TD4096_ROUNDS * app_s
+    out["first_application_4096"] = {"seconds": app_s, "contraction": contraction,
+                                     "steps": solver.steps_per_apply,
+                                     "estimated_solve_s": estimate}
+    print(f"   first application at {N}^2: {solver.steps_per_apply} steps in {app_s:.2f} s, "
+          f"residual {contraction:.3e} of the unit right-hand side; a solve to 1e-6 of "
+          f"{TD4096_ROUNDS} rounds: about {estimate:.0f} s")
+    if time.perf_counter() - t_script + estimate > budget_s:
+        N = 2048
+        eps, mu, src = profile_fdfd.block_scene(N)
+        solver = TimeDomainSolver(eps, mu, dx, dx, omega, transits=2.5, device=dev)
+    (x, res), solve_s = timed(lambda: solver.solve(src, refine_target=1e-6), dev)
+    if not (res[-2] < 1e-6 and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"timedomain {N}^2 did not converge: {res}")
+    out["solve"] = {"size": N, "seconds": solve_s, "trace": res, "rounds": len(res) - 2,
+                    "steps_per_apply": solver.steps_per_apply, "peak_gb": peak_gb(dev)}
+    del solver, first, x
+    torch.cuda.empty_cache()
+    done(t0, f"96^2 wave run vs CPU {out['wave_run_96_rel_err']:.3e}; timedomain{N}: "
+             f"{solve_s:.2f} s, {len(res) - 2} rounds of {out['solve']['steps_per_apply']} "
+             f"steps, trace {[f'{t:.2e}' for t in res]}")
+    return out
+
+
+def schwarz_cli_phase() -> dict:
+    """Phase 23: ``tiled --size 512`` and ``fdfd --size 512 --solver
+    timedomain`` on the card, each in its own process."""
+    t0 = phase("23. CLI: tiled --size 512 and fdfd --size 512 --solver timedomain, "
+               "--device cuda --out ''")
+    cli = {}
+    for name, args in (("tiled", ["tiled", "--size", "512"]),
+                       ("timedomain", ["fdfd", "--size", "512", "--solver", "timedomain"])):
+        cmd = [sys.executable, "-m", "fdtd2d_tpu_torch.cli", *args, "--device", "cuda",
+               "--out", ""]
+        t_cli = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t_cli
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        if name == "tiled":
+            m = re.search(r"^convergence trace: \[(.*)\]$", proc.stdout, re.M)
+            values = [float(v.strip("'")) for v in m.group(1).split(", ")] if m else []
+            ok = len(values) >= 3 and values[-2] <= 1e-6
+            cli[name] = {"trace": values}
+        else:
+            m = re.search(r"^relative residual: (\S+) \(f64 iterate: (\S+);", proc.stdout, re.M)
+            ok = m is not None and float(m.group(2)) <= 1e-6
+            cli[name] = {"residual": float(m.group(1)), "f64_iterate_residual": float(m.group(2))
+                         } if m else {}
+        if not ok:
+            raise AssertionError(f"CLI {name} printed no converged residual: {proc.stdout!r}")
+        cli[name]["process_s"] = seconds
+        print(f"   {name}: {proc.stdout.strip()} ({seconds:.1f} s)")
+    done(t0)
+    return cli
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
+    t_script = time.perf_counter()
     t0 = phase("1. device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1363,7 +1567,11 @@ def main() -> int:
              f"a step; all blocks shared one card: no copy between two cards, no scaling")
 
     fdfd = fdfd_phases(dev)
-    invdes = {"adjoint": adjoint_phase(dev), **invdes_phases(dev, tool("profile_fdfd"))}
+    profile_fdfd = tool("profile_fdfd")
+    invdes = {"adjoint": adjoint_phase(dev), **invdes_phases(dev, profile_fdfd)}
+    schwarz = {"tiled": tiled_phase(dev, profile_fdfd),
+               "timedomain": timedomain_phase(dev, profile_fdfd, t_script),
+               "cli": schwarz_cli_phase()}
 
     print(json.dumps({"kernels": [{
         "name": "fdtd_fused (K1)", "route": "cuda",
@@ -1444,6 +1652,8 @@ def main() -> int:
                                **fdfd}}))
     print(json.dumps({"invdes": {"card": info["name"], "power_limit": info["power_limit"],
                                  **invdes}}))
+    print(json.dumps({"tiled_timedomain": {"card": info["name"],
+                                           "power_limit": info["power_limit"], **schwarz}}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

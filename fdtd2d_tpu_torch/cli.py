@@ -1,14 +1,15 @@
-"""Command-line entry point of the port (the ``fdtd``, ``fdfd`` and
-``invdes`` subcommands so far):
+"""Command-line entry point of the port (the ``fdtd``, ``fdfd``, ``tiled``
+and ``invdes`` subcommands so far):
 
     python -m fdtd2d_tpu_torch.cli fdtd --size 2048 --steps 2000 --device cuda
     fdtd2d-torch fdtd --size 200 --steps 1000 [--structure img.png] [--video out.mp4]
-    fdtd2d-torch fdfd --size 512 --omega 17e9 --solver direct --device cuda [--out Ez.png]
+    fdtd2d-torch fdfd --size 512 --omega 17e9 --solver direct|krylov|timedomain [--out Ez.png]
+    fdtd2d-torch tiled --size 512 --mode krylov|additive|multiplicative [--plot-patches p.png]
     fdtd2d-torch invdes --size 250 --steps 100 --freqs 10 [--decade] [--out resp.png]
 
-Flags and printed lines are those of ``fdtd2d fdtd``, ``fdtd2d fdfd`` and
-``fdtd2d invdes`` (fdtd2d_tpu/cli.py), plus ``--device``. ``--out ""``
-skips the plot.
+Flags and printed lines are those of ``fdtd2d fdtd``, ``fdtd2d fdfd``,
+``fdtd2d tiled`` and ``fdtd2d invdes`` (fdtd2d_tpu/cli.py), plus
+``--device``. ``--out ""`` skips the plot.
 ``--backend`` takes the port's names and the JAX CLI's: ``jax`` is
 ``torch`` (the plain step) and ``pallas`` is ``fused`` (K1).
 """
@@ -61,6 +62,16 @@ def cmd_fdfd(args):
         x, trace = solver.solve(source, rhs_scale=args.omega, refine_target=args.tol)
         print(f"relative residual: {trace[-1]:.3e} "
               f"(f64 iterate: {trace[-2]:.3e})")
+    elif args.solver == "timedomain":
+        from fdtd2d_tpu_torch.fdfd.timedomain import TimeDomainSolver
+
+        solver = TimeDomainSolver(scene.eps.cpu().numpy(), scene.mu.cpu().numpy(), scene.dx,
+                                  scene.dx, args.omega, device=args.device)
+        x, trace = solver.solve(source.cpu().numpy(), rhs_scale=args.omega,
+                                refine_target=args.tol)
+        print(f"relative residual: {trace[-1]:.3e} "
+              f"(f64 iterate: {trace[-2]:.3e}; "
+              f"{solver.steps_per_apply} wave steps/apply)")
     else:
         from fdtd2d_tpu_torch.fdfd.solver import run_fdfd
 
@@ -75,6 +86,37 @@ def cmd_fdfd(args):
         Ez = x.real.cpu().numpy()
         m = float(abs(Ez).max()) or 1.0
         plot_Ez(Ez, scene.eps.cpu().numpy(), args.out, vmax=m, vmin=-m)
+        print(f"wrote {args.out}")
+
+
+def cmd_tiled(args):
+    from fdtd2d_tpu_torch.core.grid import Scene
+    from fdtd2d_tpu_torch.fdfd.tiled import bfs_order, generate_patches, run_fdfd_tiled
+
+    scene = Scene.from_image(args.structure, args.size, args.size, dx=args.dx,
+                             black_point=3.0, device="cpu")
+    eps, mu = scene.eps.numpy(), scene.mu.numpy()
+    source = scene.point_source(args.size // 2, args.size // 2).numpy()
+    if args.plot_patches:
+        from fdtd2d_tpu_torch.viz.plots import plot_patch_distances
+
+        W = args.patch_size + 2 * args.padding
+        origins = generate_patches(args.size, args.size, args.patch_size, args.padding)
+        dists = bfs_order(origins, W, source, halo=10)
+        plot_patch_distances(origins, dists, W, eps.shape, args.plot_patches, source=source)
+        print(f"wrote {args.plot_patches}")
+    sol, trace = run_fdfd_tiled(eps, mu, scene.dx, scene.dx, args.omega, source,
+                                mode=args.mode, patch_size=args.patch_size,
+                                padding=args.padding,
+                                refine_target=args.refine_target or None, verbose=True,
+                                device=args.device)
+    print(f"convergence trace: {[f'{t:.2e}' for t in trace]}")
+    if args.out:
+        from fdtd2d_tpu_torch.viz.render import plot_Ez
+
+        Ez = sol.real.cpu().numpy()
+        m = float(abs(Ez).max()) or 1.0
+        plot_Ez(Ez, eps, args.out, vmax=m, vmin=-m)
         print(f"wrote {args.out}")
 
 
@@ -128,16 +170,38 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--tol", type=float, default=1e-6)
     f.add_argument("--maxiter", type=int, default=1000)
     f.add_argument("--solver", type=str, default="krylov",
-                   choices=["krylov", "direct"],
+                   choices=["krylov", "direct", "timedomain"],
                    help="krylov: FDM-FGMRES (scales past the direct "
                         "solver's memory); direct: exact sublattice "
-                        "block-Thomas factorization (any contrast)")
+                        "block-Thomas factorization (any contrast); "
+                        "timedomain: frequency-locked wave run to steady "
+                        "state (wavelength-robust, no factor memory)")
     f.add_argument("--structure", type=str, default=None)
     f.add_argument("--out", type=str, default="Ez.png",
                    help='plot of Re(Ez); "" skips it')
     f.add_argument("--device", type=str, default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu")
     f.set_defaults(fn=cmd_fdfd)
+
+    f = sub.add_parser("tiled", help="domain-decomposed solve")
+    f.add_argument("--size", type=int, default=512)
+    f.add_argument("--omega", type=float, default=17e9)
+    f.add_argument("--dx", type=float, default=1e-3)
+    f.add_argument("--mode", type=str, default="krylov",
+                   choices=["krylov", "additive", "multiplicative"])
+    f.add_argument("--patch-size", type=int, default=100)
+    f.add_argument("--padding", type=int, default=30)
+    f.add_argument("--refine-target", type=float, default=1e-6,
+                   help="true-f64-residual target for iterative refinement "
+                        "(krylov mode; 0 disables refinement)")
+    f.add_argument("--structure", type=str, default=None)
+    f.add_argument("--out", type=str, default="Ez_tiled.png",
+                   help='plot of Re(Ez); "" skips it')
+    f.add_argument("--plot-patches", type=str, default=None,
+                   help="write the BFS patch-distance diagnostic map here")
+    f.add_argument("--device", type=str, default="cuda",
+                   help="torch device, e.g. cuda, cuda:1 or cpu")
+    f.set_defaults(fn=cmd_tiled)
 
     f = sub.add_parser("invdes", help="inverse design (low-pass filter)")
     f.add_argument("--size", type=int, default=250)

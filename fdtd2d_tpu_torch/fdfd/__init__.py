@@ -1,8 +1,9 @@
 """FDFD steady-state solves (counterpart of ``fdtd2d_tpu/fdfd``): the direct
 sublattice block-Thomas solver, FDM-preconditioned FGMRES (batched over
-omega for a stacked operator), complex128 iterative refinement, and the
-differentiable adjoint solve. Not ported yet: tiled Schwarz, the
-time-domain solver, and the compressed/HPS factor modes."""
+omega for a stacked operator), complex128 iterative refinement, the
+differentiable adjoint solve, tiled Schwarz (two-level ORAS and the
+stationary sweeps) and the frequency-locked time-domain solver. Not ported
+yet: the compressed/HPS factor modes."""
 
 from fdtd2d_tpu_torch.fdfd.autodiff import solve_helmholtz_differentiable
 from fdtd2d_tpu_torch.ops.helmholtz import make_operator, HelmholtzOperator
@@ -14,6 +15,8 @@ from fdtd2d_tpu_torch.fdfd.direct import (
     solve_factored,
 )
 from fdtd2d_tpu_torch.fdfd.refine import refine, refine_batched, RefineResult
+from fdtd2d_tpu_torch.fdfd.tiled import TiledSolver, run_fdfd_tiled
+from fdtd2d_tpu_torch.fdfd.timedomain import TimeDomainSolver
 
 __all__ = [
     "make_operator",
@@ -31,4 +34,7 @@ __all__ = [
     "RefineResult",
     "shifted_laplacian_preconditioner",
     "solve_helmholtz_differentiable",
+    "run_fdfd_tiled",
+    "TiledSolver",
+    "TimeDomainSolver",
 ]

@@ -49,7 +49,7 @@ from fdtd2d_tpu_torch.fdfd.refine import refine, refine_batched, true_relative_r
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator, make_operator
 
 _PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
-_LATER = "ported later (ROADMAP Queue 1, item 12)"
+_LATER = "ported later (ROADMAP Queue 1, item 2)"
 
 
 def five_point_coefficients(op: HelmholtzOperator):

@@ -20,7 +20,10 @@ depend on material contrast, not on grid size or PML strength.
 A stacked preconditioner (``stack_preconditioners``, or
 ``fdm_preconditioner_for`` of a stacked operator) holds one factor set per
 omega: ``Pr``/``Pri`` (F, Nx, Nx), ``PcT``/``PcTi`` (F, Ny, Ny), ``D``
-(F, Nx, Ny), applied to (F, Nx, Ny) with batched matmuls.
+(F, Nx, Ny), applied to (F, Nx, Ny) with batched matmuls. An unstacked
+preconditioner applied to a (P, Nx, Ny) batch (one preconditioner shared by
+every patch of fdfd/tiled.py, as the JAX package applies it under ``vmap``)
+broadcasts its factors over the batch in the same batched matmuls.
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ class FDMPreconditioner:
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         shape = r.shape
-        R = r.reshape(self.D.shape).to(self.Pr.dtype)
+        batch = () if r.numel() == self.D.numel() else (-1,)
+        R = r.reshape(batch + self.D.shape).to(self.Pr.dtype)
         Y = (self.Pri @ R @ self.PcTi) * self.D
         return (self.Pr @ Y @ self.PcT).reshape(shape)
 
@@ -112,7 +116,7 @@ def stack_preconditioners(Ms) -> FDMPreconditioner:
 def fdm_preconditioner_for(op: HelmholtzOperator) -> FDMPreconditioner:
     """FDM preconditioner matched to an operator's parameters (its mean eps
     and 1/mu, taken on the host in the operator's precision); stacked over
-    omega when the operator is."""
+    omega when the operator is, one shared by every patch of a patch stack."""
     Nx, Ny = op.shape
     eps_ref = float(np.mean(op.eps.detach().cpu().numpy()))
     mu_ref = 1.0 / float(np.mean(op.inv_mu.detach().cpu().numpy()))
@@ -121,4 +125,4 @@ def fdm_preconditioner_for(op: HelmholtzOperator) -> FDMPreconditioner:
     Ms = [fdm_preconditioner(Nx, Ny, dx, dy, omega, op.pml_thickness, op.sigma_max, op.m,
                              eps_ref=eps_ref, mu_ref=mu_ref, dtype=op.dtype, device=op.device)
           for omega in op.omega.reshape(-1).tolist()]
-    return stack_preconditioners(Ms) if op.batch_shape else Ms[0]
+    return stack_preconditioners(Ms) if op.omega.ndim else Ms[0]

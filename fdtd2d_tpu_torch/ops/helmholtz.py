@@ -25,6 +25,11 @@ A *stacked* operator (``stack_operators``) carries a leading batch over omega:
 ``eps`` and ``inv_mu`` stay (Nx, Ny), shared by every member; its ``apply``
 takes (..., F, Nx, Ny). It is the port's form of the JAX package's
 ``jax.tree.map(jnp.stack, *ops)`` under ``vmap`` (apps/inverse_design.py).
+
+A *patch-stacked* operator (fdfd/tiled.py ``stack_patch_operators``) carries
+the batch on the medium instead: ``eps`` and ``inv_mu`` are (P, W, W), one
+window a patch, while omega, the spacing and the stretch vectors stay
+unstacked, shared by every patch; its ``apply`` takes (..., P, W, W).
 """
 
 from __future__ import annotations
@@ -75,8 +80,8 @@ class HelmholtzOperator:
     """Matrix-free A for the 2D TE FDFD problem on an (Nx, Ny) grid. Real
     fields and scalars are in the real type of the complex ``dtype``."""
 
-    eps: torch.Tensor          # (Nx, Ny) real
-    inv_mu: torch.Tensor       # (Nx, Ny) real
+    eps: torch.Tensor          # (Nx, Ny) real; (P, Nx, Ny) when patch-stacked
+    inv_mu: torch.Tensor       # (Nx, Ny) real; (P, Nx, Ny) when patch-stacked
     inv_s_row: torch.Tensor    # (Nx,) complex — 1/s along the row axis
     inv_s_col: torch.Tensor    # (Ny,) complex — 1/s along the column axis
     omega: torch.Tensor        # 0-d, or (F,) when stacked
@@ -89,12 +94,13 @@ class HelmholtzOperator:
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return tuple(self.eps.shape)
+        return tuple(self.eps.shape[-2:])
 
     @property
     def batch_shape(self) -> Tuple[int, ...]:
-        """() for one operator, (F,) for a stack over omega."""
-        return tuple(self.omega.shape)
+        """() for one operator, (F,) for a stack over omega, (P,) for a
+        stack over patches."""
+        return tuple(self.omega.shape) or tuple(self.eps.shape[:-2])
 
     @property
     def field_shape(self) -> Tuple[int, ...]:
@@ -145,10 +151,10 @@ class HelmholtzOperator:
         a_r = self.inv_2dy**2
         im = self.inv_mu
         # (C M C^T)[k,k] = (1/s_k)^2 * a * (1/mu_{k-1} + 1/mu_{k+1}), truncated.
-        im_cm = F.pad(im[:, :-1], (1, 0))   # 1/mu at col j-1 (0 at edge)
-        im_cp = F.pad(im[:, 1:], (0, 1))    # 1/mu at col j+1
-        im_rm = F.pad(im[:-1, :], (0, 0, 1, 0))
-        im_rp = F.pad(im[1:, :], (0, 0, 0, 1))
+        im_cm = F.pad(im[..., :-1], (1, 0))   # 1/mu at col j-1 (0 at edge)
+        im_cp = F.pad(im[..., 1:], (0, 1))    # 1/mu at col j+1
+        im_rm = F.pad(im[..., :-1, :], (0, 0, 1, 0))
+        im_rp = F.pad(im[..., 1:, :], (0, 0, 0, 1))
         dc = (isc**2) * a_c * (im_cm + im_cp)
         dr = (isr**2) * a_r * (im_rm + im_rp)
         return dc + dr - w2 * self.eps
@@ -192,10 +198,20 @@ def operator_from_numpy(eps, inv_mu, inv_s_row, inv_s_col, omega, inv_2dx, inv_2
                         device="cpu") -> HelmholtzOperator:
     """The operator from host arrays of its fields, in their own dtypes (e.g.
     ``np.asarray`` of a JAX ``HelmholtzOperator``'s fields), so that both
-    packages compute from one operator."""
+    packages compute from one operator. A JAX patch stack (eps (P, W, W);
+    omega, the spacings (P,) and the stretch vectors (P, W), each the same
+    for every patch) becomes the port's patch-stacked operator, whose
+    unstacked fields are the first patch's."""
 
     def t(a):
         return torch.tensor(np.asarray(a), device=device)
+
+    if np.ndim(eps) == 3:
+        shared = (omega, inv_2dx, inv_2dy, inv_s_row, inv_s_col)
+        if any((np.asarray(a) != np.asarray(a)[:1]).any() for a in shared):
+            raise ValueError("operator_from_numpy: a patch stack must share omega, the "
+                             "spacings and the stretch vectors")
+        omega, inv_2dx, inv_2dy, inv_s_row, inv_s_col = (np.asarray(a)[0] for a in shared)
 
     return HelmholtzOperator(eps=t(eps), inv_mu=t(inv_mu), inv_s_row=t(inv_s_row),
                              inv_s_col=t(inv_s_col), omega=t(omega), inv_2dx=t(inv_2dx),

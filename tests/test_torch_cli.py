@@ -48,10 +48,48 @@ def test_cli_fdfd_matches_jax(capsys, solver):
         assert float(ours.group(1)) == pytest.approx(float(ref.group(1)), rel=0.5)
 
 
+TIMEDOMAIN_RESIDUAL = re.compile(
+    r"^relative residual: (\S+) \(f64 iterate: (\S+); (\d+) wave steps/apply\)$", re.M)
+
+
 def test_cli_fdfd_has_no_timedomain_solver(capsys):
+    """``fdfd --solver timedomain --size 64 --out ""`` prints the JAX CLI's
+    line: the same wave steps an application, the f64 iterate at --tol, the
+    returned array's residual within 1% of JAX's; no plot. A solver the CLI
+    has not is refused."""
+    args = ["fdfd", "--size", "64", "--solver", "timedomain", "--out", ""]
+    assert jax_main(args) == 0
+    ref = TIMEDOMAIN_RESIDUAL.search(capsys.readouterr().out)
+    assert main(args + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    ours = TIMEDOMAIN_RESIDUAL.search(out)
+    assert ours and ref and "wrote" not in out
+    assert ours.group(3) == ref.group(3)
+    assert float(ours.group(2)) <= 1e-6
+    assert float(ours.group(1)) == pytest.approx(float(ref.group(1)), rel=1e-2)
     with pytest.raises(SystemExit):
-        main(["fdfd", "--solver", "timedomain"])
+        main(["fdfd", "--solver", "hps"])
     assert "invalid choice" in capsys.readouterr().err
+
+
+def test_cli_tiled_matches_jax(capsys):
+    """``tiled --size 128 --patch-size 40 --padding 12 --out ""`` (krylov,
+    refined to 1e-6): the JAX CLI's probe decision and number of trace
+    entries, the f64 iterate at the target, the returned array's residual
+    within 1% of JAX's; no plot."""
+    args = ["tiled", "--size", "128", "--patch-size", "40", "--padding", "12", "--out", ""]
+    pattern = re.compile(r"^convergence trace: \[(.*)\]$", re.M)
+    assert jax_main(args) == 0
+    ref = capsys.readouterr().out
+    assert main(args + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    probe = re.compile(r"^patch probe: .* -> (\S+)$", re.M)
+    assert probe.search(out).group(1) == probe.search(ref).group(1)
+    ours, theirs = ([float(v.strip("'")) for v in pattern.search(o).group(1).split(", ")]
+                    for o in (out, ref))
+    assert len(ours) == len(theirs) and ours[-2] <= 1e-6
+    assert ours[-1] == pytest.approx(theirs[-1], rel=1e-2)
+    assert "wrote" not in out
 
 
 def test_cli_rejects_unknown_backend(capsys):

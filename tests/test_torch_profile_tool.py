@@ -181,3 +181,31 @@ def test_bench_batched_dot_forms_agree_and_need_the_card(capsys):
     if not torch.cuda.is_available():
         assert bench.main([]) == 1
         assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_fdfd_tiled_and_timedomain_paths():
+    """``--paths tiled,tiledapprox,timedomain``: bench.py's block scene of
+    those rows, bit for bit; the wave step's bound at 4096^2 is 36 B a cell
+    at 3.35 TB/s; the stepping helpers run a step on the CPU."""
+    import importlib
+    import sys
+
+    import numpy as np
+    import torch
+
+    from fdtd2d_tpu_torch.fdfd.timedomain import build_wave_bundle
+
+    args = profile_fdfd.parse_args(["--paths", "tiled,tiledapprox,timedomain"])
+    assert args.paths == ["tiled", "tiledapprox", "timedomain"] and args.size is None
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    bench = importlib.import_module("bench")
+    for want, got in zip(bench._block_scene(96, contrast=1.5), profile_fdfd.block_scene(96)):
+        assert want.dtype == got.dtype and np.array_equal(want, got)
+    assert profile_fdfd.WAVE_STEP_BYTES == 36
+    assert profile_fdfd.WAVE_STEP_BYTES * 4096**2 / profile_fdfd.HBM_BYTES_S * 1e3 == (
+        pytest.approx(0.180, abs=5e-4))
+    eps, mu, _ = profile_fdfd.block_scene(32)
+    bundle = build_wave_bundle(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=8, device="cpu")
+    b, u, uprev, psi = profile_fdfd._wave_state(bundle)
+    assert b.shape == u.shape == uprev.shape == (4, 16, 16) and b.dtype == torch.complex64
+    assert not torch.equal(u, uprev) and all(not p.any() for p in psi)

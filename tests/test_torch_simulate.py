@@ -208,7 +208,8 @@ def test_port_imports_no_jax():
             "fdtd2d_tpu_torch.ops.dst, fdtd2d_tpu_torch.ops.fdm, "
             "fdtd2d_tpu_torch.ops.krylov, fdtd2d_tpu_torch.core.scenes, "
             "fdtd2d_tpu_torch.fdfd.autodiff, fdtd2d_tpu_torch.apps.inverse_design, "
-            "fdtd2d_tpu_torch.ops.sparse, fdtd2d_tpu_torch.viz.plots\n"
+            "fdtd2d_tpu_torch.ops.sparse, fdtd2d_tpu_torch.viz.plots, "
+            "fdtd2d_tpu_torch.fdfd.tiled, fdtd2d_tpu_torch.fdfd.timedomain\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'fdtd2d_tpu', 'optax', 'flax'))\n"
             "assert not bad, bad")

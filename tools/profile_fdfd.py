@@ -2,6 +2,8 @@
 
     python tools/profile_fdfd.py [--size 512] [--paths factor,direct,fgmres] [--out DIR]
     python tools/profile_fdfd.py --paths invdes [--size 250] [--freqs 10] [--decade]
+    python tools/profile_fdfd.py --paths tiled,tiledapprox [--size 1024]
+    python tools/profile_fdfd.py --paths timedomain [--size 4096]
 
 On the scene of ``bench.py``'s fdfd512 rows (512^2 by default: a 2.5x
 dielectric block, a point source at the centre carrying -1j*omega, dx 1e-3 m,
@@ -25,6 +27,24 @@ omega 17e9, PML 40), for each path of ``--paths``:
   took, forward plus adjoint), which says whether the batched solve is
   host bound.
 
+- ``tiled``, ``tiledapprox`` and ``timedomain`` (not in the default list):
+  the rows of ``bench.py:307-380`` on its block scene (``block_scene``: a
+  1.5x block at ``[N/3:2N/3, N/4:N/2]``, a unit point source at the centre,
+  17 GHz, dx 1 mm; ``--size`` 1024 unless given, 4096 for ``timedomain``).
+  ``tiled``: ``TiledSolver`` with its defaults (patches of 100 with padding
+  30), refined to a true 1e-6; ``tiledapprox``: outer restart 10, tol 1e-2,
+  maxiter 60, no refinement (``tiled_cell``). Each: a cold solve, a timed
+  warm solve, and a warm solve under torch.profiler; its line adds the
+  probe's contractions and decision, the outer FGMRES iterations a round,
+  the returned field's true residual recomputed in complex128, peak device
+  memory and ``launches_per_outer_iteration``. ``timedomain``:
+  ``TimeDomainSolver`` at 2.5 transits, refined to a true 1e-6
+  (``timedomain_cell``): ms a wave step by CUDA events over 200 steps
+  beside its bound (``WAVE_STEP_BYTES`` a cell at 3.35 TB/s), a window of 20
+  steps under torch.profiler (launches a step, busy share), then a cold and
+  a warm solve (a whole solve is hundreds of thousands of launches: its
+  trace is not taken).
+
 It writes each window's Chrome trace to ``--out`` (by default ``profile/`` in
 the repo's git-ignored output directory) and prints one JSON line per path,
 then the card's name and power limit as nvidia-smi gives them. Besides the
@@ -43,13 +63,14 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from profile_fdtd import summarize  # noqa: E402
 
-PATHS = ("factor", "direct", "fgmres", "invdes")
+PATHS = ("factor", "direct", "fgmres", "invdes", "tiled", "tiledapprox", "timedomain")
 DEFAULT_PATHS = ["factor", "direct", "fgmres"]
 TOP = 12
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -135,14 +156,157 @@ def invdes_steps(problem, steps: int, *, dtype=torch.complex64, lr: float = 0.05
     return out
 
 
+# the least HBM traffic of a wave step, a cell: u, u_prev and b read and u_new
+# written in complex64, 1/(eps dt^2) read in float32 (the strips and the
+# per-axis coefficients are O(N) and not counted)
+WAVE_STEP_BYTES = 4 * 8 + 4
+HBM_BYTES_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet (700 W)
+
+
+def block_scene(N: int, contrast: float = 1.5):
+    """bench.py's ``_block_scene``: eps, mu and a unit point source at the
+    centre, float64 numpy."""
+    from fdtd2d_tpu_torch import constants
+
+    eps = np.full((N, N), constants.EPSILON_0)
+    eps[N // 3 : 2 * N // 3, N // 4 : N // 2] *= contrast
+    mu = np.full((N, N), constants.MU_0)
+    src = np.zeros((N, N))
+    src[N // 2, N // 2] = 1.0
+    return eps, mu, src
+
+
+def _peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def tiled_cell(N: int, *, approx: bool, dev, trace: Path) -> dict:
+    """bench.py's ``tiled1024`` (``approx=False``: ``TiledSolver`` defaults,
+    solver tol 1e-4, maxiter 300, refined to 1e-6) or ``tiled1024approx``
+    (outer restart 10, tol 1e-2, maxiter 60, no refinement) at N: a cold
+    solve, a timed warm solve, a profiled warm solve."""
+    from fdtd2d_tpu_torch.fdfd.refine import true_relative_residual
+    from fdtd2d_tpu_torch.fdfd.tiled import TiledSolver
+    from fdtd2d_tpu_torch.utils.metrics import Timer
+
+    omega, dx = 17e9, 1e-3
+    eps, mu, src = block_scene(N)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Timer(dev) as build:
+        solver = TiledSolver(eps, mu, dx, dx, omega, device=dev,
+                             **({"outer_restart": 10} if approx else {}))
+    kw = (dict(solver_tol=1e-2, solver_maxiter=60, refine_target=None) if approx
+          else dict(solver_tol=1e-4, solver_maxiter=300, refine_target=1e-6))
+    with Timer(dev) as cold:
+        solver.solve(src, **kw)
+    with Timer(dev) as warm:
+        x, res = solver.solve(src, **kw)
+    iterations = list(solver.outer_iterations)
+    b64 = torch.as_tensor(src, device=dev).to(torch.complex128) * (-1j * omega)
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        with Timer(dev) as profiled:
+            solver.solve(src, **kw)
+    prof.export_chrome_trace(str(trace))
+    summary = window_summary(trace, profiled.seconds)
+    cc, ct = solver._patch_probe
+    return {"size": N, "patches": len(solver.origins), "window": solver.W,
+            "outer_restart": solver.outer_restart, **kw,
+            "probe": {"coarse": cc, "two_level": ct,
+                      "decision": "two-level" if solver._patch_decision else "coarse-only"},
+            "build_s": build.seconds, "cold_solve_s": cold.seconds, "warm_solve_s": warm.seconds,
+            "trace": res, "rounds": max(len(res) - 2, 0), "outer_iterations": iterations,
+            "c128_residual": true_relative_residual(solver.op64, b64, x),
+            "peak_gb": _peak_gb(dev),
+            "launches_per_outer_iteration": summary["launches"] / sum(iterations),
+            "busy_share_unprofiled": summary["device_busy_ms"] / (warm.seconds * 1e3),
+            "profiled": summary}
+
+
+def _wave_state(bundle, seed: int = 0):
+    """A seeded random complex64 state, right-hand side and zero filter
+    state on the bundle's device."""
+    from fdtd2d_tpu_torch.fdfd.timedomain import _psi0
+
+    g = torch.Generator(device=bundle.theta.device).manual_seed(seed)
+    shape = tuple(bundle.inv_eps_dt2.shape)
+
+    def rand():
+        return torch.randn(shape, dtype=torch.complex64, device=bundle.theta.device,
+                           generator=g)
+
+    u, uprev, b = rand(), rand(), rand()
+    return b, u, uprev, _psi0(b, bundle.t)
+
+
+def wave_step_ms(bundle, steps: int = 200, warmup: int = 20) -> float:
+    """ms a wave step (``timedomain._step``) on the bundle's card, CUDA events
+    over ``steps`` steps after ``warmup``, from a seeded random state."""
+    from fdtd2d_tpu_torch.fdfd.timedomain import _step
+
+    b, u, uprev, psi = _wave_state(bundle)
+    su = torch.empty_like(b)
+    for k in range(warmup):
+        u, uprev, psi = _step(bundle, b, u, uprev, psi, k, su)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(warmup, warmup + steps):
+        u, uprev, psi = _step(bundle, b, u, uprev, psi, k, su)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def wave_step_profile(bundle, trace: Path, steps: int = 20) -> dict:
+    """``steps`` wave steps under torch.profiler: the window summary with
+    ``launches_per_step``."""
+    from fdtd2d_tpu_torch.fdfd.timedomain import _step
+    from fdtd2d_tpu_torch.utils.metrics import Timer
+
+    b, u, uprev, psi = _wave_state(bundle, seed=1)
+    su = torch.empty_like(b)
+    u, uprev, psi = _step(bundle, b, u, uprev, psi, 0, su)
+    dev = b.device
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        with Timer(dev) as timer:
+            for k in range(1, steps + 1):
+                u, uprev, psi = _step(bundle, b, u, uprev, psi, k, su)
+    prof.export_chrome_trace(str(trace))
+    summary = window_summary(trace, timer.seconds)
+    return {**summary, "launches_per_step": summary["launches"] / steps}
+
+
+def timedomain_cell(N: int, *, dev, trace: Path, transits: float = 2.5) -> dict:
+    """bench.py's ``timedomain4096`` at N: ms a wave step and its profile,
+    then a cold and a warm ``TimeDomainSolver.solve`` refined to 1e-6."""
+    from fdtd2d_tpu_torch.fdfd.timedomain import TimeDomainSolver
+    from fdtd2d_tpu_torch.utils.metrics import Timer
+
+    omega, dx = 17e9, 1e-3
+    eps, mu, src = block_scene(N)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Timer(dev) as build:
+        solver = TimeDomainSolver(eps, mu, dx, dx, omega, transits=transits, device=dev)
+    out = {"size": N, "transits": transits, "build_s": build.seconds,
+           "n_main": solver.bundle.n_main, "n_avg": solver.bundle.n_avg,
+           "steps_per_apply": solver.steps_per_apply,
+           "ms_per_step": wave_step_ms(solver.bundle),
+           "bound_ms": WAVE_STEP_BYTES * N * N / HBM_BYTES_S * 1e3}
+    out["step_profile"] = wave_step_profile(solver.bundle, trace)
+    for name in ("cold", "warm"):
+        with Timer(dev) as timer:
+            _, res = solver.solve(src, refine_target=1e-6)
+        out[f"{name}_solve_s"], out[f"{name}_trace"] = timer.seconds, res
+    out["rounds"] = len(res) - 2
+    out["peak_gb"] = _peak_gb(dev)
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fdfd: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    import numpy as np
-
     from fdtd2d_tpu_torch import constants
     from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
     from fdtd2d_tpu_torch.fdfd.solver import resolve_preconditioner, solve_fdfd
@@ -150,6 +314,7 @@ def main(argv=None) -> int:
     from fdtd2d_tpu_torch.utils.metrics import Timer, device_info
 
     dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)  # the memory-stat calls need an initialized device
     args.out.mkdir(parents=True, exist_ok=True)
     if "invdes" in args.paths:
         from fdtd2d_tpu_torch.apps.inverse_design import decade_lowpass_problem, lowpass_problem
@@ -166,6 +331,17 @@ def main(argv=None) -> int:
                           "decade": args.decade, "steps": steps,
                           "trace_file": str(trace.relative_to(ROOT))
                           if trace.is_relative_to(ROOT) else str(trace)}))
+    for path in ("tiled", "tiledapprox", "timedomain"):
+        if path not in args.paths:
+            continue
+        n_p = args.size or (4096 if path == "timedomain" else 1024)
+        trace = args.out / f"trace_fdfd_{path}_{n_p}.json"
+        if path == "timedomain":
+            cell = timedomain_cell(n_p, dev=dev, trace=trace)
+        else:
+            cell = tiled_cell(n_p, approx=path == "tiledapprox", dev=dev, trace=trace)
+        print(json.dumps({"path": path, **cell, "trace_file": str(trace.relative_to(ROOT))
+                          if trace.is_relative_to(ROOT) else str(trace)}))
     N, dx, omega = args.size or 512, 1e-3, 17e9
     eps = np.full((N, N), constants.EPSILON_0)
     eps[N // 3 : 2 * N // 3, N // 4 : N // 2] *= 2.5
@@ -174,7 +350,7 @@ def main(argv=None) -> int:
     src[N // 2, N // 2] = -1j * omega
 
     for path in args.paths:
-        if path == "invdes":
+        if path in ("invdes", "tiled", "tiledapprox", "timedomain"):
             continue
         if path == "factor":
             def run():
