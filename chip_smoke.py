@@ -210,6 +210,29 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
 23. The CLI: ``tiled --size 512`` and ``fdfd --size 512 --solver
     timedomain``, ``--device cuda --out ""``, each in its own process; the
     refined iterate's residual <= 1e-6 in each.
+24. Surrogate datagen (models/datagen.py, tools/bench_surrogate.py): the
+    scene-batched direct factor (one factor set a scene, each block row one
+    batched inverse over 4 x B blocks) in complex64 on the card, refined
+    once, against the port's complex128 solve on the CPU at 48^2, batch 3,
+    PML 8 (<= 1e-5, true residuals < 1e-5); then ``generate_dataset`` at the
+    CLI's default 250^2, batch 64: a cold batch, then 128 samples timed
+    (warm samples/s; worst true float64 residual < 1e-5), one batch's split
+    into factor, solve, refinement and host check, and peak memory.
+25. The train step (models/train.py): one small-UNet step on the card
+    against the CPU (loss, gradients, BatchNorm statistics, parameters;
+    TF32 off: 1e-5, 1e-4 of the largest gradient, 1e-5; TF32 convolutions as
+    the port runs float32: 1e-3, 0.2, 1e-2, since TF32's 10-bit inputs move
+    a first-layer weight gradient by up to 7.5% of the largest); then ``UNet2D()`` at 256^2, batch 8 (bench.py's trainstep cell) in
+    float32 and bf16: ms a step (CUDA events, 20 steps after 5, in turns f32,
+    bf16, bf16, f32), FLOPs by FlopCounterMode, the share of the bf16 peak
+    (989 TFLOP/s) and of the TF32 peak (495) for float32, peak memory, a
+    torch.profiler window, and one 64-step ``train_epoch``.
+26. Inference: 50-step chains at 256^2, batch 8, deterministic and
+    stochastic, ``regress`` and a two-member ``ensemble_inference``: finite
+    and in physical units.
+27. The CLI on cuda, a process each: ``datagen --size 64 --samples 32
+    --batch 16 --pml 8`` (residual < 1e-4; phase 24 holds 1e-5), ``train --epochs 2 --batch 8
+    --ckpt-dir ...``, ``infer --steps 10 --out ""``.
 
 Tolerance: 1e-5 relative (max |kernel - plain| / max |plain|), the bound of
 the float64 oracle tests (tests/test_fdtd_oracle.py). The kernel and the
@@ -230,7 +253,10 @@ phases 17-18,
 one with the times, residuals and peak memory of phases 10-15, one
 (``invdes``) with the errors, times, iterations, launches and peak memory
 of phases 19-20, one (``tiled_timedomain``) with the parity, probe, times,
-iterations, rounds, launches and peak memory of phases 21-23, and the
+iterations, rounds, launches and peak memory of phases 21-23, one
+(``surrogate``) with the parity, rates, times, FLOPs, profile and peak
+memory of phases 24-27 (no TPU kernel lies on the surrogate's path: its
+convolutions are cuDNN's, and the ``kernels`` line is unchanged), and the
 nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -999,6 +1025,37 @@ def schwarz_cli_phase() -> dict:
     return cli
 
 
+def surrogate_phases(dev, bench_surrogate) -> dict:
+    """Phases 24-27: the diffusion surrogate on the card (datagen, the train
+    step, inference, the CLI). Returns the ``{"surrogate": ...}`` line."""
+    out = {}
+    t0 = phase("24. surrogate datagen: the scene-batched factor at 48^2 vs the CPU in "
+               "complex128; generate_dataset at 250^2, batch 64")
+    cell = bench_surrogate.datagen_cell(dev)
+    out["datagen"] = {"parity": bench_surrogate.factor_parity(dev), "cell": cell}
+    done(t0, f"{cell['warm_samples_per_s']:.2f} samples/s warm, worst true residual "
+             f"{cell['worst_true_residual']:.3e}, split {cell['split_s_one_batch']}, peak "
+             f"{cell['peak_gb']:.2f} GB; parity {out['datagen']['parity']}")
+    t0 = phase("25. the train step: small UNet on the card vs the CPU; UNet2D() at 256^2, "
+               "batch 8, float32 (TF32) and bf16")
+    out["train"] = {"parity": bench_surrogate.train_parity(dev)}
+    cell, states = bench_surrogate.train_cell(dev, ROOT / "build" / "train_step.json")
+    out["train"]["cell"] = cell
+    done(t0, f"ms a step {cell['ms_per_step']}, {cell['flops_per_step'] / 1e12:.3f} TFLOP a "
+             f"step, bf16 {cell['mfu_bfloat16_vs_bfloat16_peak']:.3f} of its peak, f32 "
+             f"{cell['mfu_float32_vs_tf32_peak']:.3f} of the TF32 peak, peak {cell['peak_gb_in_steps']} "
+             f"GB, busy {[p['busy_share'] for p in cell['profile'].values()]}")
+    t0 = phase("26. inference: 50-step chains at 256^2, batch 8; regress; a 2-member ensemble")
+    out["infer"] = bench_surrogate.infer_cell(dev, states["bfloat16"])
+    del states
+    torch.cuda.empty_cache()
+    done(t0, ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in out["infer"].items()))
+    t0 = phase("27. CLI: datagen, train, infer on cuda, a process each")
+    out["cli"] = bench_surrogate.cli_cell(ROOT / "build" / "surrogate_cli")
+    done(t0, ", ".join(f"{k} {v['process_s']:.1f} s" for k, v in out["cli"].items()))
+    return out
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     t_script = time.perf_counter()
@@ -1572,6 +1629,9 @@ def main() -> int:
     schwarz = {"tiled": tiled_phase(dev, profile_fdfd),
                "timedomain": timedomain_phase(dev, profile_fdfd, t_script),
                "cli": schwarz_cli_phase()}
+    t_surrogate = time.perf_counter()
+    surrogate = surrogate_phases(dev, tool("bench_surrogate"))
+    surrogate["phases_24_27_s"] = time.perf_counter() - t_surrogate
 
     print(json.dumps({"kernels": [{
         "name": "fdtd_fused (K1)", "route": "cuda",
@@ -1654,6 +1714,8 @@ def main() -> int:
                                  **invdes}}))
     print(json.dumps({"tiled_timedomain": {"card": info["name"],
                                            "power_limit": info["power_limit"], **schwarz}}))
+    print(json.dumps({"surrogate": {"card": info["name"], "power_limit": info["power_limit"],
+                                    **surrogate}}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

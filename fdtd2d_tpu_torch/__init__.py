@@ -8,6 +8,9 @@ reference the port is tested against:
 - ``fdfd``  — steady-state solves: direct, FGMRES, refinement, the adjoint.
 - ``apps``  — inverse design on the differentiable FDFD solve.
 - ``parallel`` — the sharded FDTD rollout over a mesh of devices.
+- ``models`` — the diffusion surrogate: UNet, DDPM schedule and sampler,
+              D4 augmentation, datagen with the scene-batched direct factor,
+              training with checkpoints.
 - ``ops``   — hand-written CUDA kernels (built with nvcc at first use) and
               their plain PyTorch versions; the FDFD operator, preconditioners,
               Krylov solver and sparse-CSR layer as torch ops.

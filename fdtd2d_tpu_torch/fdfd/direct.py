@@ -21,7 +21,11 @@ The row recursions are host loops of torch ops over the row axis (-2) of
 (odd N) and the four stacked on a leading axis (even N: ``torch.linalg.inv``
 and ``torch.matmul`` batch the four). A solve carries its right-hand sides
 as the last axis, so a batch of sources widens each row's matvec into a
-matmul instead of looping.
+matmul instead of looping. An operator batched over scenes (eps, omega and
+the stretch vectors with a leading (B,) axis, models/datagen.py) factors into
+one factor set a scene in the same pass: the coefficients, the four
+sublattices and the row recursions all carry the scene axis, and a solve
+takes one right-hand side a scene, (B, Nx, Ny).
 
 Coefficients (checked against HelmholtzOperator.apply in the tests):
 
@@ -53,27 +57,29 @@ _LATER = "ported later (ROADMAP Queue 1, item 2)"
 
 
 def five_point_coefficients(op: HelmholtzOperator):
-    """(d, e, w, s, n) coefficient arrays, each (Nx, Ny) complex; entries at
-    invalid offsets (within 2 of the relevant edge) are zero."""
+    """(d, e, w, s, n) coefficient arrays, each ``op.field_shape`` complex
+    ((Nx, Ny), or (B, Nx, Ny) for an operator batched over scenes or
+    omegas); entries at invalid offsets (within 2 of the relevant edge) are
+    zero."""
     ac2 = op.inv_2dx**2
     ar2 = op.inv_2dy**2
     im = op.inv_mu
     isc = op.inv_s_col
     isr = op.inv_s_row
     # im shifted by one toward the coupled neighbour, zero at the edges
-    im_cp = F.pad(im[:, 1:-1], (0, 2))          # im(i, j+1), j <= Ny-3
-    im_cm = F.pad(im[:, 1:-1], (2, 0))          # im(i, j-1), j >= 2
-    im_rp = F.pad(im[1:-1, :], (0, 0, 0, 2))
-    im_rm = F.pad(im[1:-1, :], (0, 0, 2, 0))
-    isc_p = F.pad(isc[2:], (0, 2))              # isc(j+2)
-    isc_m = F.pad(isc[:-2], (2, 0))             # isc(j-2)
-    isr_p = F.pad(isr[2:], (0, 2))
-    isr_m = F.pad(isr[:-2], (2, 0))
+    im_cp = F.pad(im[..., 1:-1], (0, 2))        # im(i, j+1), j <= Ny-3
+    im_cm = F.pad(im[..., 1:-1], (2, 0))        # im(i, j-1), j >= 2
+    im_rp = F.pad(im[..., 1:-1, :], (0, 0, 0, 2))
+    im_rm = F.pad(im[..., 1:-1, :], (0, 0, 2, 0))
+    isc_p = F.pad(isc[..., 2:], (0, 2))         # isc(j+2)
+    isc_m = F.pad(isc[..., :-2], (2, 0))        # isc(j-2)
+    isr_p = F.pad(isr[..., 2:], (0, 2))
+    isr_m = F.pad(isr[..., :-2], (2, 0))
 
-    e = -ac2 * (isc * isc_p)[None, :] * im_cp
-    w = -ac2 * (isc * isc_m)[None, :] * im_cm
-    s = -ar2 * (isr * isr_p)[:, None] * im_rp
-    n = -ar2 * (isr * isr_m)[:, None] * im_rm
+    e = -ac2 * (isc * isc_p)[..., None, :] * im_cp
+    w = -ac2 * (isc * isc_m)[..., None, :] * im_cm
+    s = -ar2 * (isr * isr_p)[..., :, None] * im_rp
+    n = -ar2 * (isr * isr_m)[..., :, None] * im_rm
     return op.diagonal(), e, w, s, n
 
 
@@ -126,16 +132,20 @@ class CkptSublatticeFactors:
 @dataclasses.dataclass(frozen=True)
 class DirectFactors:
     """Factors for the four (i mod 2, j mod 2) sublattices, in the fixed
-    order (0,0), (0,1), (1,0), (1,1)."""
+    order (0,0), (0,1), (1,0), (1,1). ``batch``: the operator's batch shape,
+    () for one operator, (B,) for one factor set a scene of a batch."""
     subs: tuple
     shape: Tuple[int, int]
+    batch: Tuple[int, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class StackedFactors:
-    """The four sublattice factor sets stacked on a leading axis (even N)."""
+    """The four sublattice factor sets stacked on a leading axis (even N),
+    ahead of the operator's batch axes (``batch``, as in DirectFactors)."""
     stacked: object       # SublatticeFactors or CkptSublatticeFactors
     shape: Tuple[int, int]
+    batch: Tuple[int, ...] = ()
 
 
 def _factor_rows(d, e, w, n, s, stride: Optional[int] = None):
@@ -212,36 +222,41 @@ def _solve_sub(f, b):
 
 
 def _solve(factors, b):
-    """x = A^{-1} b for b of shape (Nx, Ny), (Nx*Ny,) or (K, Nx, Ny)."""
+    """x = A^{-1} b for b of shape batch + (Nx, Ny), batch + (Nx*Ny,) or
+    batch + (K, Nx, Ny), ``batch`` being the factors' (one right-hand side,
+    or K, for each factor set)."""
     Nx, Ny = factors.shape
-    bk = b.reshape(-1, Nx, Ny)
+    bk = b.reshape(factors.batch + (-1, Nx, Ny))
     x = torch.zeros_like(bk)
     if isinstance(factors, StackedFactors):
-        b4 = torch.stack([bk[:, px::2, py::2] for (px, py) in _PARITIES])
+        b4 = torch.stack([bk[..., px::2, py::2] for (px, py) in _PARITIES])
         x4 = _solve_sub(factors.stacked, b4)
         for k, (px, py) in enumerate(_PARITIES):
-            x[:, px::2, py::2] = x4[k]
+            x[..., px::2, py::2] = x4[k]
     else:
         for (px, py), fs in zip(_PARITIES, factors.subs):
-            x[:, px::2, py::2] = _solve_sub(fs, bk[:, px::2, py::2])
+            x[..., px::2, py::2] = _solve_sub(fs, bk[..., px::2, py::2])
     return x.reshape(b.shape)
 
 
 def _sublattice_coefficients(op: HelmholtzOperator):
     """Per parity, the (d, e, w, n, s) coefficients of that sublattice."""
     d, e, w, s, n = five_point_coefficients(op)
-    return [tuple(a[px::2, py::2] for a in (d, e, w, n, s)) for (px, py) in _PARITIES]
+    return [tuple(a[..., px::2, py::2] for a in (d, e, w, n, s)) for (px, py) in _PARITIES]
 
 
 def factor(op: HelmholtzOperator) -> DirectFactors:
     """Factor A into the four sublattice block-Thomas forms (build once,
-    solve many), one sublattice at a time (any N)."""
+    solve many), one sublattice at a time (any N). An operator batched over
+    scenes (models/datagen.py ``make_operator_traced``) gets one factor set
+    a scene, each row step one batched inverse over the scenes."""
     return DirectFactors(subs=tuple(_factor_rows(*c) for c in _sublattice_coefficients(op)),
-                         shape=op.shape)
+                         shape=op.shape, batch=op.batch_shape)
 
 
-def solve_factored(f: DirectFactors, b) -> torch.Tensor:
-    """x = A^{-1} b from prebuilt factors; b (Nx, Ny) complex."""
+def solve_factored(f, b) -> torch.Tensor:
+    """x = A^{-1} b from prebuilt factors (DirectFactors or StackedFactors);
+    b (Nx, Ny) complex, or (B, Nx, Ny) against factors of B scenes."""
     return _solve(f, b)
 
 
@@ -259,12 +274,14 @@ def stack_coefficients(op: HelmholtzOperator):
 def factor_stacked(op: HelmholtzOperator, *, checkpointed: bool = False,
                    stride: int = 32) -> StackedFactors:
     """Stacked-sublattice factorization (even Nx/Ny only): the four
-    sublattices' recursions run as one, batched on the leading axis."""
+    sublattices' recursions run as one, batched on the leading axis. For an
+    operator batched over B scenes every row step is one batched inverse
+    over 4 x B blocks."""
     Nx, Ny = op.shape
     if Nx % 2 or Ny % 2:
         raise ValueError(f"stacked factors need even N, got {(Nx, Ny)}")
     stacked = _factor_rows(*stack_coefficients(op), stride=stride if checkpointed else None)
-    return StackedFactors(stacked=stacked, shape=(Nx, Ny))
+    return StackedFactors(stacked=stacked, shape=(Nx, Ny), batch=op.batch_shape)
 
 
 def solve_stacked(f: StackedFactors, b) -> torch.Tensor:

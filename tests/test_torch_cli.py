@@ -1,7 +1,9 @@
 """The port's CLI (fdtd2d_tpu_torch.cli) against the JAX package's."""
 
+import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -131,3 +133,62 @@ def test_cli_invdes_matches_jax(capsys):
         "step 0: loss", "step 1: loss", "final loss:"]
     assert all(abs(float(a) - float(b)) <= 1e-6 for (_, a), (_, b) in zip(ours, theirs))
     assert out.count("\n") == ref.count("\n") == 3 and "wrote" not in out
+
+
+SAMPLES = re.compile(r"^(\d+) samples; worst solve residual (\S+)$", re.M)
+EPOCH = re.compile(r"^epoch (\d+): loss (\S+)$", re.M)
+RESTORED = re.compile(r"^restored epoch (\d+); predicted field std (\S+)$", re.M)
+
+
+def _surrogate_chain(capsys, data, ckpt, extra=()):
+    """The port's ``train`` then ``infer`` on ``data``; returns their output."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # 32^2 batches gain little from more threads
+    try:
+        assert main(["train", "--data", data, "--epochs", "2", "--batch", "8",
+                     "--ckpt-dir", ckpt, "--device", "cpu", *extra]) == 0
+        train_out = capsys.readouterr().out
+        assert main(["infer", "--ckpt-dir", ckpt, "--data", data, "--steps", "10",
+                     "--out", "", "--device", "cpu"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    return train_out, capsys.readouterr().out
+
+
+def test_cli_surrogate_chain(capsys, tmp_path):
+    """``datagen --size 32 --samples 16 --batch 8 --pml 8`` then ``train
+    --epochs 2 --batch 8`` then ``infer --steps 10 --out ""``, all on the
+    CPU: the JAX CLI's printed lines (datagen's residual under 1e-5), a
+    checkpoint a run, and a finite field from it."""
+    data, ckpt = str(tmp_path / "d.npz"), str(tmp_path / "ck")
+    assert main(["datagen", "--size", "32", "--samples", "16", "--batch", "8", "--pml", "8",
+                 "--out", data, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    m = SAMPLES.search(out)
+    assert m and int(m.group(1)) == 16 and float(m.group(2)) < 1e-5
+    assert f"wrote {data}" in out
+    train_out, infer_out = _surrogate_chain(capsys, data, ckpt)
+    assert train_out.startswith("recipe: prediction_type=epsilon t_sampling=snr "
+                                "weighting=snr_gamma ema_decay=0.0 augment=False "
+                                "compute_dtype=float32\n")
+    losses = EPOCH.findall(train_out)
+    assert [e for e, _ in losses] == ["0", "1"] and all(np.isfinite(float(v)) for _, v in losses)
+    assert re.search(r"^final loss (\S+)$", train_out, re.M)
+    assert sorted(os.listdir(ckpt)) == ["epoch_00001.pt"]
+    m = RESTORED.search(infer_out)
+    assert m and m.group(1) == "1" and np.isfinite(float(m.group(2))) and float(m.group(2)) > 0
+    assert "wrote" not in infer_out
+
+
+def test_cli_train_reads_a_jax_dataset(capsys, tmp_path):
+    """The port's ``train`` and ``infer`` on a compact dataset written by the
+    JAX CLI's ``datagen``."""
+    data, ckpt = str(tmp_path / "jax.npz"), str(tmp_path / "ck")
+    assert jax_main(["datagen", "--size", "32", "--samples", "8", "--batch", "8", "--pml", "8",
+                     "--compact", "--out", data]) == 0
+    assert float(SAMPLES.search(capsys.readouterr().out).group(2)) < 1e-5
+    train_out, infer_out = _surrogate_chain(capsys, data, ckpt,
+                                            ("--prediction-type", "x0", "--t-sampling",
+                                             "uniform", "--weighting", "uniform"))
+    assert len(EPOCH.findall(train_out)) == 2
+    assert RESTORED.search(infer_out)

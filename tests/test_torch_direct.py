@@ -276,3 +276,73 @@ def test_more_than_one_factor_mode_is_a_value_error(modes):
         DirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=4, device="cpu", **flags)
     with pytest.raises(ValueError, match="choose one of"):
         JaxDirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=4, **flags)
+
+
+def _scene_batch(N, B=3, pml=8, dtype=torch.complex64):
+    """A scene-batched operator (models/datagen.py's form: eps, mu (B, N, N),
+    omega (B,), stretch vectors (B, N)) of binary scenes."""
+    from fdtd2d_tpu_torch.models.datagen import make_operator_traced
+
+    rng = np.random.default_rng(N)
+    eps = np.where(rng.random((B, N, N)) > 0.5, 5.0, 1.0) * 8.854e-12
+    mu = np.full((B, N, N), 1.2566e-6)
+    omega = rng.uniform(18e9, 30e9, B)
+    src = np.zeros((B, N, N))
+    src[:, N // 2, N // 3] = 1.0
+    op = make_operator_traced(torch.tensor(eps), torch.tensor(mu), DX, DX, torch.tensor(omega),
+                              pml, dtype=dtype)
+    b = (-1j * op.omega.to(dtype))[:, None, None] * torch.tensor(src).to(dtype)
+    return op, b
+
+
+def _scene(op, i):
+    """Scene i of a scene-batched operator as an unbatched operator."""
+    import dataclasses
+
+    return dataclasses.replace(op, eps=op.eps[i], inv_mu=op.inv_mu[i], omega=op.omega[i],
+                               inv_s_row=op.inv_s_row[i], inv_s_col=op.inv_s_col[i])
+
+
+@pytest.mark.parametrize("N, stacked", [(48, True), (50, True), (47, False)])
+def test_scene_batched_factor_equals_per_scene_calls(N, stacked):
+    """One factor set a scene from one batched factor (the datagen path:
+    stacked for even N, per sublattice for odd), and its solve of one
+    right-hand side a scene, against the unbatched factor and solve of each
+    scene: bit for bit at 48^2. Elsewhere torch's CPU kernels put a row's
+    last elements in a scalar tail loop in one layout and in the vector
+    body in the other, and the two round complex products differently, so
+    the coefficients already differ in the last bit: there the factors and
+    solves agree to 1e-5. Every solve's residual is at the complex64 floor."""
+    op, b = _scene_batch(N)
+    fac = factor_stacked if stacked else factor
+    f = fac(op)
+    assert f.batch == (3,)
+    if stacked:
+        assert f.stacked.Ws.shape == (4, 3, N // 2, N // 2, N // 2)
+    x = solve_factored(f, b)
+    assert x.shape == b.shape
+    for i in range(3):
+        fi = fac(_scene(op, i))
+        assert fi.batch == ()
+        got = [f.stacked.Ws[:, i]] if stacked else [s.Ws[i] for s in f.subs]
+        want = [fi.stacked.Ws] if stacked else [s.Ws for s in fi.subs]
+        xi = solve_factored(fi, b[i])
+        if N == 48:
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert torch.equal(x[i], xi)
+        else:
+            assert all(_rel(g.numpy(), w.numpy()) < 1e-5 for g, w in zip(got, want))
+            assert _rel(x[i].numpy(), xi.numpy()) < 1e-5
+        assert _residual(_scene(op, i), x[i], b[i]) < 1e-4
+
+
+def test_unbatched_factor_keeps_its_layout():
+    """An unbatched operator's factors carry no batch axis, and a factor of a
+    one-scene batch equals it bit for bit (the scene axis adds no
+    arithmetic)."""
+    op, b = _scene_batch(32, B=1)
+    one = _scene(op, 0)
+    f1, fb = factor_stacked(one), factor_stacked(op)
+    assert f1.batch == () and f1.stacked.Ws.shape == (4, 16, 16, 16)
+    assert torch.equal(fb.stacked.Ws[:, 0], f1.stacked.Ws)
+    assert torch.equal(solve_stacked(fb, b)[0], solve_stacked(f1, b[0]))
