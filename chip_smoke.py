@@ -233,6 +233,33 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
 27. The CLI on cuda, a process each: ``datagen --size 64 --samples 32
     --batch 16 --pml 8`` (residual < 1e-4; phase 24 holds 1e-5), ``train --epochs 2 --batch 8
     --ckpt-dir ...``, ``infer --steps 10 --out ""``.
+28. The compressed (HODLR) direct mode (fdfd/compressed.py): at 160^2
+    (tests/test_direct.py's scene, 24 GHz, PML 20, rank 10, leaf 16) on
+    the card and on the CPU, the raw backsolve within 1e-2 (q = 0) and
+    3e-3 (q = 1) of the full store, the refined iterate below 1e-8, and the
+    card's refined iterate within 1e-6 of the CPU's. Then ``direct2048``
+    (bench.py:274-303, not cut: the hard scene, seed 3, 17 GHz, PML 40,
+    rank 20, leaf 128, power_iters 1): factor seconds, the store (8.32 GB,
+    equal to the plan's count), factor peak and growth; cold and warm
+    solves to 1e-6 (``trace[-2] < 1e-5``); the warm solve stacked (the
+    default) and as a loop over the four sublattices of the same factors
+    (what ``stacked_solve=False`` solves). At the end of the script,
+    ``direct2048stored``: plain ``DirectSolver()`` at 2048^2 (the 34.4 GB
+    store), factor, peak and warm solve, cut when the compressed factor
+    plus two of its solves would take the script past 1080 s (the cut is
+    printed).
+29. The HPS mode (fdfd/hps.py): at 64^2 the raw complex64 residual on the
+    card and the CPU (< 5e-5); then ``DirectSolver(hps=True, hps_leaf=8)``
+    on the hard scene at 512^2 and 1024^2 (17 GHz, PML 40): factor seconds,
+    the store equal to ``predicted_factor_bytes``, peak, warm solve to 1e-6
+    within the mode's 40 rounds, rounds and contraction a round.
+30. The sublattice-sharded direct solve (parallel/direct_sharded.py) on
+    meshes of 4 and 2 x cuda:0 at 512^2, stored, checkpointed (stride 32)
+    and compressed (rank 20), against the single-device solve of its mode
+    that batches alike (per sublattice for 4 entries, stacked for 2): the
+    raw backsolve <= 1e-6 (stored, checkpointed; whether bit for bit); the
+    compressed raw backsolve reported, within 1e-2 of the stored one, and
+    its solve refined to 1e-10 <= 1e-6 from the single-device one.
 
 Tolerance: 1e-5 relative (max |kernel - plain| / max |plain|), the bound of
 the float64 oracle tests (tests/test_fdtd_oracle.py). The kernel and the
@@ -256,7 +283,9 @@ of phases 19-20, one (``tiled_timedomain``) with the parity, probe, times,
 iterations, rounds, launches and peak memory of phases 21-23, one
 (``surrogate``) with the parity, rates, times, FLOPs, profile and peak
 memory of phases 24-27 (no TPU kernel lies on the surrogate's path: its
-convolutions are cuDNN's, and the ``kernels`` line is unchanged), and the
+convolutions are cuDNN's, and the ``kernels`` line is unchanged), one
+(``direct_modes``) with the parity, times, stores, rounds and peak memory of
+phases 28-30 (no TPU kernel lies on this path either), and the
 nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -1056,6 +1085,319 @@ def surrogate_phases(dev, bench_surrogate) -> dict:
     return out
 
 
+# direct2048's HODLR store (rank 20, leaf 128: 3 levels): 4 sublattices x 1024
+# rows x 253,952 complex64 entries; the stored factors' 4 x 1024 x 1024^2
+DIRECT2048_STORE_BYTES = 8_321_499_136
+STORED2048_BYTES = 34_359_738_368
+
+
+def hodlr_plan_bytes(comp, N: int, rank: int, leaf: int, itemsize: int = 8) -> int:
+    """Bytes of an N x N grid's HODLR store, counted from the plan alone."""
+    nc = N // 2
+    L = comp.hodlr_plan(nc, leaf=leaf, rank=rank)
+    m = nc >> L
+    row = (1 << L) * m * m + sum(4 * (1 << (lev - 1)) * (nc >> lev) * rank
+                                 for lev in range(1, L + 1))
+    return 4 * (N // 2) * row * itemsize
+
+
+def contraction(trace) -> float:
+    """Geometric mean of the residual's contraction a refinement round,
+    after the first correction."""
+    rounds = len(trace) - 2
+    return (trace[-2] / trace[1]) ** (1 / (rounds - 1)) if rounds > 1 else float("nan")
+
+
+def compressed_phase(dev) -> tuple:
+    """Phase 28: the compressed mode at 160^2 on the card against the CPU,
+    then direct2048 at full size. Returns its numbers, the time the stored
+    2048^2 factor and two solves should take (the compressed factor
+    recomputes every stored inverse) and the 2048^2 scene."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd import compressed as comp
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+
+    t0 = phase("28. compressed (HODLR) DirectSolver: 160^2 on the card vs the CPU; direct2048 "
+               "(rank 20, leaf 128, power_iters 1) at full size, solved stacked and as a loop")
+    out, dx = {}, 1e-3
+    N, omega = 160, 24e9
+    eps, mu, src = hard_binary_scene(N, seed=3, sigma=4.0, source_amp=10.0)
+    rhs = torch.tensor(-1j * omega * src, dtype=torch.complex64)
+    rhs /= torch.linalg.vector_norm(rhs)
+    small, refined = {}, {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        x_full = DirectSolver(eps, mu, dx, dx, omega, pml_thickness=20, device=where)._solve(
+            rhs.to(where))
+        for q, bound in ((0, 1e-2), (1, 3e-3)):
+            s = DirectSolver(eps, mu, dx, dx, omega, pml_thickness=20, compressed=True, rank=10,
+                             leaf=16, power_iters=q, device=where)
+            raw = norm_rel(s._solve(rhs.to(where)), x_full)
+            x64, trace = s.solve(src, refine_target=1e-9, return_split=True)
+            if not (raw < bound and trace[-1] < 1e-8):
+                raise AssertionError(f"compressed 160^2 on the {label}, q={q}: raw backsolve vs "
+                                     f"the full store {raw:.3e} (bound {bound}), trace {trace}")
+            small[f"{label}_q{q}"] = {"raw_vs_full_store": raw, "trace": trace}
+            refined[(label, q)] = x64.cpu()
+    for q in (0, 1):
+        small[f"card_vs_cpu_refined_q{q}"] = norm_rel(refined[("card", q)], refined[("cpu", q)])
+        if not small[f"card_vs_cpu_refined_q{q}"] <= 1e-6:
+            raise AssertionError(f"compressed 160^2 refined, card vs CPU: {small}")
+    out["parity_160"] = small
+    print(f"   160^2: raw vs full store " + ", ".join(
+        f"{k} {v['raw_vs_full_store']:.3e}" for k, v in small.items() if isinstance(v, dict))
+        +
+        f"; refined card vs CPU {small['card_vs_cpu_refined_q0']:.3e} (q 0), "
+        f"{small['card_vs_cpu_refined_q1']:.3e} (q 1)")
+
+    N, omega = 2048, 17e9
+    scene = hard_binary_scene(N, seed=3, source_amp=10.0)
+    eps, mu, src = scene
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    solver, factor_s = timed(lambda: DirectSolver(
+        eps, mu, dx, dx, omega, pml_thickness=40, compressed=True, rank=20, leaf=128,
+        power_iters=1, device=dev), dev)
+    factor_peak = peak_gb(dev)
+    plan_bytes = hodlr_plan_bytes(comp, N, 20, 128)
+    if not solver.compressed_bytes == plan_bytes == DIRECT2048_STORE_BYTES:
+        raise AssertionError(f"direct2048 store {solver.compressed_bytes} B, plan {plan_bytes} B")
+    (_, trace_cold), cold_s = timed(lambda: solver.solve(src, refine_target=1e-6), dev)
+    (x, trace), warm_s = timed(lambda: solver.solve(src, refine_target=1e-6), dev)
+    if not (trace[-2] < 1e-5 and trace[-2] <= 1e-6 and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"direct2048 did not converge: {trace}")
+    stacked = solver.factors
+    solver.factors = comp.sublattice_views(stacked.stacked, stacked.shape)
+    try:
+        (x_loop, trace_loop), loop_s = timed(lambda: solver.solve(src, refine_target=1e-6), dev)
+    finally:
+        solver.factors = stacked
+    loop_vs_stacked = norm_rel(x_loop, x)
+    if not (trace_loop[-2] <= 1e-6 and loop_vs_stacked <= 1e-5):
+        raise AssertionError(f"direct2048 loop solve: {trace_loop}, vs stacked {loop_vs_stacked}")
+    out["direct2048"] = {
+        "rank": 20, "leaf": 128, "power_iters": 1, "factor_s": factor_s,
+        "store_bytes": solver.compressed_bytes, "factor_peak_gb": factor_peak,
+        "factor_growth": solver.factor_growth, "cold_solve_s": cold_s, "trace_cold": trace_cold,
+        "warm_solve_stacked_s": warm_s, "trace": trace, "rounds": len(trace) - 2,
+        "warm_solve_loop_s": loop_s, "trace_loop": trace_loop,
+        "loop_vs_stacked_rel_err": loop_vs_stacked, "peak_gb": peak_gb(dev)}
+    del solver, stacked, x, x_loop
+    torch.cuda.empty_cache()
+    done(t0, f"direct2048: factor {factor_s:.2f} s, store {plan_bytes / 1e9:.3f} GB, factor peak "
+             f"{factor_peak:.2f} GB, growth {out['direct2048']['factor_growth']:.3e}; solve to "
+             f"1e-6 cold {cold_s:.3f} s, warm stacked (the default) {warm_s:.3f} s, warm as a loop "
+             f"over the four sublattices {loop_s:.3f} s; {len(trace) - 2} inner solves, trace "
+             f"{[f'{t:.2e}' for t in trace]}")
+    return out, factor_s + 2 * warm_s, scene
+
+
+def stored2048_phase(dev, scene, estimate_s: float, t_script: float,
+                     budget_s: float = 1080.0) -> dict:
+    """Phase 28, continued: direct2048stored, plain DirectSolver() at 2048^2
+    (the 34.4 GB store). Cut when the estimate (the compressed factor plus
+    two of its warm solves) would take the script past ``budget_s``."""
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+
+    t0 = phase("28, continued. direct2048stored: DirectSolver() at 2048^2, the 34.4 GB store")
+    elapsed = time.perf_counter() - t_script
+    if elapsed + estimate_s > budget_s:
+        done(t0, f"cut: {elapsed:.0f} s into the script, the factor and solves would take about "
+                 f"{estimate_s:.0f} s more, past {budget_s:.0f} s")
+        return {"cut": True, "elapsed_s": elapsed, "estimate_s": estimate_s}
+    eps, mu, src = scene
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    solver, factor_s = timed(lambda: DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=40,
+                                                  device=dev), dev)
+    factor_peak = peak_gb(dev)
+    store = solver.factors.stacked.Ws.numel() * solver.factors.stacked.Ws.element_size()
+    if store != STORED2048_BYTES:
+        raise AssertionError(f"direct2048stored store {store} B")
+    (_, trace_cold), cold_s = timed(lambda: solver.solve(src, refine_target=1e-6), dev)
+    (x, trace), warm_s = timed(lambda: solver.solve(src, refine_target=1e-6), dev)
+    if not (trace[-2] <= 1e-6 and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"direct2048stored did not converge: {trace}")
+    out = {"cut": False, "factor_s": factor_s, "store_bytes": store,
+           "factor_peak_gb": factor_peak, "factor_growth": solver.factor_growth,
+           "cold_solve_s": cold_s, "trace_cold": trace_cold, "warm_solve_s": warm_s,
+           "trace": trace, "rounds": len(trace) - 2, "estimate_s": estimate_s}
+    del solver, x
+    torch.cuda.empty_cache()
+    done(t0, f"factor {factor_s:.2f} s (estimate {estimate_s:.0f} s for all), store "
+             f"{store / 1e9:.2f} GB, peak {factor_peak:.2f} GB; solve to 1e-6 cold {cold_s:.3f} s, "
+             f"warm {warm_s:.3f} s, trace {[f'{t:.2e}' for t in trace]}")
+    return out
+
+
+def hps_phase(dev) -> dict:
+    """Phase 29: the HPS factor at 64^2 on the card against the CPU, then
+    DirectSolver(hps=True) at 512^2 and 1024^2."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd import hps
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    t0 = phase("29. HPS DirectSolver: 64^2 on the card vs the CPU; the hard scene at 512^2 and "
+               "1024^2 (hps_leaf 8), refined to 1e-6 within 40 rounds")
+    out, dx, omega = {}, 1e-3, 17e9
+    eps, mu, src = hard_binary_scene(64, seed=3, sigma=4.0, source_amp=10.0)
+    xs = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        op = make_operator(eps, mu, dx, dx, omega, pml_thickness=12, device=where)
+        b = torch.tensor(-1j * omega * src, dtype=torch.complex64, device=where)
+        xs[label] = hps.hps_solve(hps.hps_factor(op, m=8), b)
+        res = norm_rel(op.apply(xs[label]), b)
+        if not res < 5e-5:
+            raise AssertionError(f"HPS 64^2 raw complex64 residual on the {label}: {res:.3e}")
+        out[f"raw_residual_64_{label}"] = res
+    out["card_vs_cpu_64"] = norm_rel(xs["card"].cpu(), xs["cpu"])
+    for N in (512, 1024):
+        eps, mu, src = hard_binary_scene(N, seed=3, source_amp=10.0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        solver, factor_s = timed(lambda: DirectSolver(eps, mu, dx, dx, omega, pml_thickness=40,
+                                                      hps=True, hps_leaf=8, device=dev), dev)
+        factor_peak = peak_gb(dev)
+        if solver.hps_bytes != hps.predicted_factor_bytes(N, 8):
+            raise AssertionError(f"hps{N}: {solver.hps_bytes} B, predicted "
+                                 f"{hps.predicted_factor_bytes(N, 8)}")
+        (_, trace_cold), cold_s = timed(lambda: solver.solve(src, refine_target=1e-6), dev)
+        (x, trace), warm_s = timed(lambda: solver.solve(src, refine_target=1e-6), dev)
+        if not (trace[-2] <= 1e-6 and bool(torch.isfinite(x).all())):
+            raise AssertionError(f"hps{N} did not reach 1e-6 in 40 rounds: {trace}")
+        out[f"hps{N}"] = {"factor_s": factor_s, "store_bytes": solver.hps_bytes,
+                          "factor_peak_gb": factor_peak, "factor_growth": solver.factor_growth,
+                          "cold_solve_s": cold_s, "warm_solve_s": warm_s, "trace": trace,
+                          "trace_cold": trace_cold, "rounds": len(trace) - 2,
+                          "contraction": contraction(trace), "peak_gb": peak_gb(dev)}
+        del solver, x
+        torch.cuda.empty_cache()
+        print(f"   hps{N}: factor {factor_s:.3f} s, store {out[f'hps{N}']['store_bytes'] / 1e9:.3f} "
+              f"GB, peak {factor_peak:.3f} GB; warm solve {warm_s:.3f} s (cold {cold_s:.3f}), "
+              f"{len(trace) - 2} rounds, contraction {out[f'hps{N}']['contraction']:.3f} a round")
+    done(t0, f"64^2: raw residual card {out['raw_residual_64_card']:.3e}, CPU "
+             f"{out['raw_residual_64_cpu']:.3e}, card vs CPU {out['card_vs_cpu_64']:.3e}")
+    return out
+
+
+def sharded_direct_phase(dev) -> dict:
+    """Phase 30: factor_sharded on meshes of cuda:0 (4 and 2 entries) at
+    512^2 in the stored, checkpointed and compressed modes, each against the
+    single-device solve of its mode that batches as the mesh does (one
+    sublattice a call for 4 entries, stacked for 2). The stored and
+    checkpointed raw backsolves are held to <= 1e-6. The compressed one is
+    as accurate as its range finder, and two runs that round differently
+    (the card's batched QR and products depend on the batch) truncate
+    differently: its raw difference is reported, it is held to the stored
+    backsolve on the same mesh (the same batching, so the same rounding of
+    the dense recursion) at <= 1e-5, and the solve refined to 1e-10 with
+    the sharded factors is held to the one with the single-device factors
+    at <= 1e-6.
+
+    Batching: the card inverts one block (cuSOLVER) and a batch of blocks
+    (cuBLAS batched LU) with different, equally backward-stable rounding,
+    and the pivotless complex64 recursion carries that to ~1e-4 in the
+    solution. Every raw solve is therefore also read against the complex128
+    stacked solve (held <= 1e-3), and the compressed factor one sublattice
+    at a time against the batched one is held to the dense store's own
+    spread between the two (plus 1e-5): the compressed path adds only its
+    truncation."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd import compressed as comp
+    from fdtd2d_tpu_torch.fdfd.direct import (
+        StackedFactors, factor, factor_checkpointed, factor_stacked, solve_checkpointed,
+        solve_factored, solve_stacked, stack_coefficients)
+    from fdtd2d_tpu_torch.fdfd.refine import refine
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+    from fdtd2d_tpu_torch.parallel import factor_sharded, make_mesh, solve_factored_sharded
+
+    t0 = phase("30. factor_sharded on meshes of 4 and 2 x cuda:0 at 512^2 (stored, checkpointed "
+               "stride 32, compressed rank 20) vs the single-device solve of each mode")
+    N, omega = 512, 17e9
+    eps, mu, src = hard_binary_scene(N, seed=3, source_amp=10.0)
+    op = make_operator(eps, mu, 1e-3, 1e-3, omega, pml_thickness=40, device=dev)
+    op64 = make_operator(eps, mu, 1e-3, 1e-3, omega, pml_thickness=40, dtype=torch.complex128,
+                         device=dev)
+    b64 = torch.tensor(-1j * omega * src, device=dev)
+    b = (b64 / torch.linalg.vector_norm(b64)).to(torch.complex64)
+    nc = op.shape[1] // 2
+    L = comp.hodlr_plan(nc, leaf=128, rank=20)
+    om = comp.make_test_matrices(nc, L, 20, device=dev)
+    x_stored = solve_stacked(factor_stacked(op), b)
+    b64 = b64 / torch.linalg.vector_norm(b64)
+    x_c128 = solve_stacked(factor_stacked(op64), b64)
+    x_stored_loop = solve_factored(factor(op), b)
+    batching = {"stored_loop_vs_stacked": norm_rel(x_stored_loop, x_stored),
+                "stored_stacked_vs_c128": norm_rel(x_stored, x_c128),
+                "stored_loop_vs_c128": norm_rel(x_stored_loop, x_c128)}
+
+    def compressed_loop():
+        f = comp.factor_compressed(op, om, L=L, q=1)
+        return lambda r: comp.solve_compressed(f, r)
+
+    def compressed_stacked():
+        f = StackedFactors(stacked=comp.factor_compressed_stacked(
+            stack_coefficients(op), om, L=L, q=1), shape=op.shape)
+        return lambda r: solve_stacked(f, r)
+
+    def solver_of(f, solve):
+        return lambda r: solve(f, r)
+
+    modes = {   # kw, single-device solve per sublattice (4 entries), stacked (2)
+        "stored": ({}, lambda: solver_of(factor(op), solve_factored),
+                   lambda: solver_of(factor_stacked(op), solve_stacked)),
+        "checkpointed": (dict(checkpointed=True, stride=32),
+                         lambda: solver_of(factor_checkpointed(op, 32), solve_checkpointed),
+                         lambda: solver_of(factor_stacked(op, checkpointed=True, stride=32),
+                                           solve_stacked)),
+        "compressed": (dict(compressed=True, rank=20, leaf=128, power_iters=1),
+                       compressed_loop, compressed_stacked),
+    }
+    out, got_of, ref_of = {}, {}, {}
+    for mode, (kw, per_sublattice, stacked) in modes.items():
+        for entries, single in ((4, per_sublattice()), (2, stacked())):
+            mesh = make_mesh((entries,), axis_names=("s",), devices=[dev] * entries)
+            f, factor_s = timed(lambda: factor_sharded(op, mesh, **kw), dev)
+            got, ref = solve_factored_sharded(f, b), single(b)
+            got_of[mode, entries], ref_of[mode, entries] = got, ref
+            rec = {"raw_rel_err": norm_rel(got, ref), "bit_for_bit": bool(torch.equal(got, ref)),
+                   "raw_vs_c128": norm_rel(got, x_c128), "factor_s": factor_s}
+            ok = rec["raw_vs_c128"] <= 1e-3
+            if mode == "compressed":
+                rec["raw_vs_stored_stacked"] = norm_rel(got, x_stored)
+                rec["raw_vs_stored_same_mesh"] = norm_rel(got, got_of["stored", entries])
+                x_sh = refine(op64, b64, lambda r: solve_factored_sharded(f, r), target=1e-10)
+                x_1 = refine(op64, b64, single, target=1e-10)
+                rec["refined_rel_err"] = norm_rel(x_sh.x, x_1.x)
+                rec["refined_residuals"] = [x_sh.relative_residual, x_1.relative_residual]
+                ok = ok and rec["raw_vs_stored_same_mesh"] <= 1e-5 and rec["refined_rel_err"] <= 1e-6
+            else:
+                ok = ok and rec["raw_rel_err"] <= 1e-6
+            out[f"{mode}_{entries}"] = rec
+            if not ok:
+                raise AssertionError(f"sharded {mode} on {entries} entries vs single device: {rec}")
+            del f, single
+        torch.cuda.empty_cache()
+    # the compressed factor one sublattice a call (bench.py's stacked_solve=False)
+    # against the batched one, beside the dense store's own spread
+    batching["compressed_loop_vs_stacked"] = norm_rel(ref_of["compressed", 4],
+                                                      ref_of["compressed", 2])
+    batching["compressed_loop_vs_stored_loop"] = norm_rel(ref_of["compressed", 4], x_stored_loop)
+    out["batching"] = batching
+    if not (batching["compressed_loop_vs_stacked"] <= batching["stored_loop_vs_stacked"] + 1e-5
+            and batching["compressed_loop_vs_stored_loop"] <= 1e-5
+            and max(batching["stored_stacked_vs_c128"], batching["stored_loop_vs_c128"]) <= 1e-3):
+        raise AssertionError(f"sharded direct, batching: {batching}")
+    print("   " + ", ".join(
+        f"{k} {v['raw_rel_err']:.3e}{' (bit for bit)' if v['bit_for_bit'] else ''}"
+        + (f" (same mesh's stored {v['raw_vs_stored_same_mesh']:.3e}, refined "
+           f"{v['refined_rel_err']:.3e})" if "refined_rel_err" in v else "")
+        + f" [c128 {v['raw_vs_c128']:.3e}]"
+        for k, v in out.items() if k != "batching"))
+    done(t0, "one sublattice a call vs batched: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in batching.items()))
+    return out
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     t_script = time.perf_counter()
@@ -1632,6 +1974,13 @@ def main() -> int:
     t_surrogate = time.perf_counter()
     surrogate = surrogate_phases(dev, tool("bench_surrogate"))
     surrogate["phases_24_27_s"] = time.perf_counter() - t_surrogate
+    t_direct = time.perf_counter()
+    direct_modes, stored_estimate_s, scene2048 = compressed_phase(dev)
+    direct_modes["hps"] = hps_phase(dev)
+    direct_modes["sharded_512"] = sharded_direct_phase(dev)
+    direct_modes["direct2048stored"] = stored2048_phase(dev, scene2048, stored_estimate_s,
+                                                        t_script)
+    direct_modes["phases_28_30_s"] = time.perf_counter() - t_direct
 
     print(json.dumps({"kernels": [{
         "name": "fdtd_fused (K1)", "route": "cuda",
@@ -1716,6 +2065,8 @@ def main() -> int:
                                            "power_limit": info["power_limit"], **schwarz}}))
     print(json.dumps({"surrogate": {"card": info["name"], "power_limit": info["power_limit"],
                                     **surrogate}}))
+    print(json.dumps({"direct_modes": {"card": info["name"], "power_limit": info["power_limit"],
+                                       **direct_modes}}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -46,6 +46,7 @@ import dataclasses
 import warnings
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -53,7 +54,6 @@ from fdtd2d_tpu_torch.fdfd.refine import refine, refine_batched, true_relative_r
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator, make_operator
 
 _PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
-_LATER = "ported later (ROADMAP Queue 1, item 2)"
 
 
 def five_point_coefficients(op: HelmholtzOperator):
@@ -143,7 +143,7 @@ class DirectFactors:
 class StackedFactors:
     """The four sublattice factor sets stacked on a leading axis (even N),
     ahead of the operator's batch axes (``batch``, as in DirectFactors)."""
-    stacked: object       # SublatticeFactors or CkptSublatticeFactors
+    stacked: object       # Sublattice-, CkptSublattice- or CompressedSublatticeFactors
     shape: Tuple[int, int]
     batch: Tuple[int, ...] = ()
 
@@ -214,11 +214,14 @@ def _solve_rows_ckpt(f: CkptSublatticeFactors, b):
     return torch.stack(xs[::-1], dim=-3)
 
 
+# the row solve of each sublattice factor type, b (..., nr, nc, K); a
+# module defining another factor type adds its own (fdfd/compressed.py)
+_ROW_SOLVES = {SublatticeFactors: _solve_rows, CkptSublatticeFactors: _solve_rows_ckpt}
+
+
 def _solve_sub(f, b):
     """Solve one factored sublattice (or four stacked); b (..., K, nr, nc)."""
-    cols = b.movedim(-3, -1).contiguous()
-    solve = _solve_rows if isinstance(f, SublatticeFactors) else _solve_rows_ckpt
-    return solve(f, cols).movedim(-1, -3)
+    return _ROW_SOLVES[type(f)](f, b.movedim(-3, -1).contiguous()).movedim(-1, -3)
 
 
 def _solve(factors, b):
@@ -308,10 +311,12 @@ class DirectSolver:
     each :meth:`solve` wraps the factored backsolve in complex128 iterative
     refinement, so returned traces are TRUE float64 residuals. Even grids
     factor the four sublattices stacked; odd grids one at a time.
-    ``checkpointed=True`` stores W every ``stride`` rows. The compressed
-    (HODLR) and HPS factor modes are not ported yet and raise; their keywords
-    (``rank``, ``leaf``, ``power_iters``, ``stacked_solve``, ``hps_leaf``)
-    are taken with the JAX package's defaults.
+    ``checkpointed=True`` stores W every ``stride`` rows.
+    ``compressed=True`` stores every W in HODLR form (fdfd/compressed.py:
+    ``rank``, ``leaf``, ``power_iters``); ``stacked_solve=False`` factors and
+    solves it one sublattice at a time. ``hps=True`` factors by nested
+    dissection (fdfd/hps.py, ``hps_leaf``) and refines up to 40 rounds by
+    default.
     """
 
     def __init__(self, eps, mu, dx, dy, omega, *, pml_thickness: int = 40,
@@ -322,16 +327,50 @@ class DirectSolver:
                  hps: bool = False, hps_leaf: int = 8, device="cuda"):
         if sum((checkpointed, compressed, hps)) > 1:
             raise ValueError("choose one of checkpointed/compressed/hps")
-        if compressed:
-            raise NotImplementedError(f"DirectSolver(compressed=True) is {_LATER}")
-        if hps:
-            raise NotImplementedError(f"DirectSolver(hps=True) is {_LATER}")
         self.omega = float(omega)
         self.dtype = dtype
         self.op = make_operator(eps, mu, dx, dy, self.omega, pml_thickness, sigma_max, m,
                                 dtype, device)
         Nx, Ny = self.op.shape
-        if Nx % 2 == 0 and Ny % 2 == 0:
+        even = Nx % 2 == 0 and Ny % 2 == 0
+        self._default_refine_rounds = 8
+        self._solve_with = _solve      # (factors, r) -> x; no bound method: no cycle
+        if compressed:
+            from fdtd2d_tpu_torch.fdfd import compressed as _comp
+
+            nc = Ny // 2
+            L = _comp.hodlr_plan(nc, leaf=leaf, rank=rank)
+            omegas = _comp.make_test_matrices(nc, L, rank, dtype=dtype, device=self.op.device)
+            if even and stacked_solve:
+                self.factors = StackedFactors(
+                    stacked=_comp.factor_compressed_stacked(stack_coefficients(self.op), omegas,
+                                                            L=L, q=power_iters),
+                    shape=(Nx, Ny))
+                wmax = self.factors.stacked.wmax
+            else:
+                self.factors = _comp.factor_compressed(self.op, omegas, L=L, q=power_iters)
+                wmax = torch.stack([s.wmax for s in self.factors.subs]).amax()
+            self.compressed_bytes = _comp.compressed_bytes(self.factors)
+        elif hps:
+            # the raw complex64 error grows ~10x a grid doubling and
+            # refinement stalls at 2048^2 (fdfd/hps.py): say so before the
+            # factorization is paid for
+            if max(np.shape(eps)) > 1024:
+                warnings.warn(
+                    "DirectSolver(hps=True) is past its measured c64 accuracy wall (grid "
+                    f"{tuple(np.shape(eps))}, wall 1024^2: raw error grows ~10x/doubling and "
+                    "refinement stalls at 2048^2) — use checkpointed=True or compressed=True "
+                    "for exact solves at this size", RuntimeWarning, stacklevel=2)
+            from fdtd2d_tpu_torch.fdfd import hps as _hps
+
+            self.factors = _hps.hps_factor(self.op, m=hps_leaf)
+            self._solve_with = _hps.hps_solve
+            self.hps_bytes = _hps.factor_bytes(self.factors)
+            # the JAX package's c64 HPS solve contracted ~0.5 a round at
+            # 1024^2 (fdfd/hps.py), where block-Thomas takes ~1e-4
+            self._default_refine_rounds = 40
+            wmax = self.factors.stacked.Yroot.abs().amax()
+        elif even:
             self.factors = factor_stacked(self.op, checkpointed=checkpointed, stride=stride)
             wmax = self.factors.stacked.wmax
         else:
@@ -352,7 +391,10 @@ class DirectSolver:
                                   sigma_max, m, torch.complex128, device)
 
     def _solve(self, r: torch.Tensor) -> torch.Tensor:
-        return _solve(self.factors, r)
+        return self._solve_with(self.factors, r)
+
+    def _rounds(self, max_refine_rounds: Optional[int]) -> int:
+        return self._default_refine_rounds if max_refine_rounds is None else max_refine_rounds
 
     def _rhs(self, source, rhs_scale) -> torch.Tensor:
         scale = (-1j * self.omega) if rhs_scale is None else complex(rhs_scale)
@@ -365,12 +407,13 @@ class DirectSolver:
         """Returns ``(field, trace)``: the trace holds the float64 iterate's
         true residual per refinement round plus a final entry for the
         returned downcast array (omitted with ``return_split=True``, which
-        returns the complex128 solution). ``max_refine_rounds`` defaults to
-        8 (typical contraction ~1e-4 a round)."""
+        returns the complex128 solution). ``max_refine_rounds`` defaults per
+        factor mode: 8 for the block-Thomas modes (typical contraction ~1e-4
+        a round), 40 for ``hps`` (the JAX package's measured ~0.5 a round
+        at 1024^2)."""
         b64 = self._rhs(source, rhs_scale)
         out = refine(self.op64, b64, self._solve, target=refine_target,
-                     max_rounds=8 if max_refine_rounds is None else max_refine_rounds,
-                     inner_dtype=self.dtype)
+                     max_rounds=self._rounds(max_refine_rounds), inner_dtype=self.dtype)
         if out.relative_residual > refine_target:
             # the pivotless c64 factorization did not resolve a digit: say so,
             # with the element-growth diagnostic, instead of leaving a
@@ -405,8 +448,7 @@ class DirectSolver:
                              f"got {tuple(b64.shape)}")
         out = refine_batched(
             self.op64, b64, self._solve, target=refine_target,
-            max_rounds=8 if max_refine_rounds is None else max_refine_rounds,
-            inner_dtype=self.dtype)
+            max_rounds=self._rounds(max_refine_rounds), inner_dtype=self.dtype)
         worst = float(out.relative_residual.max()) if b64.shape[0] else 0.0
         if worst > refine_target:
             warnings.warn(

@@ -1,5 +1,7 @@
 """K1 (both modes), K2 (single-device and block mode) and K3 mode on the
-card: the CUDA kernels against their plain versions; and the FDFD solvers on the card against complex128 on the CPU.
+card: the CUDA kernels against their plain versions; and the FDFD solvers
+(stored, compressed and HPS direct factors, FGMRES) on the card against
+complex128 on the CPU.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -438,3 +440,119 @@ def test_fgmres_on_card_matches_cpu_complex128(dev):
                         torch.as_tensor(b))
     assert float((res.x.cpu().to(torch.complex128) - want).abs().max()
                  / want.abs().max()) <= 1e-4
+
+
+def _hard(N):
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+
+    return hard_binary_scene(N, seed=3, sigma=4.0, source_amp=10.0)
+
+
+def _cpu_exact(eps, mu, omega, pml, src):
+    from fdtd2d_tpu_torch.fdfd.direct import solve_direct
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    op = make_operator(eps, mu, 1e-3, 1e-3, omega, pml_thickness=pml, dtype=torch.complex128,
+                       device="cpu")
+    return solve_direct(op, torch.as_tensor(-1j * omega * src))
+
+
+def _rel2(x, ref):
+    x = x.cpu().to(torch.complex128)
+    return float(torch.linalg.vector_norm(x - ref) / torch.linalg.vector_norm(ref))
+
+
+def test_compressed_on_card_matches_cpu(dev):
+    """DirectSolver(compressed=True) at 160^2 (rank 10, leaf 16, q = 1) on the
+    card: its raw backsolve within the range finder's 3e-3 of the exact
+    complex128 solve on the CPU, and the refined complex128 iterate within
+    1e-6 of it."""
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+
+    N, omega = 160, 24e9
+    eps, mu, src = _hard(N)
+    solver = DirectSolver(eps, mu, 1e-3, 1e-3, omega, pml_thickness=20, compressed=True,
+                          rank=10, leaf=16, device=dev)
+    assert solver.factors.stacked.rows["D"].device.type == torch.device(dev).type
+    want = _cpu_exact(eps, mu, omega, 20, src)
+    b = torch.tensor(-1j * omega * src, dtype=torch.complex64, device=dev)
+    assert _rel2(solver._solve(b), want) < 3e-3
+    x64, trace = solver.solve(src, refine_target=1e-10, return_split=True)
+    assert trace[-1] <= 1e-10 and x64.device.type == torch.device(dev).type
+    assert _rel2(x64, want) < 1e-6
+
+
+def test_compressed_one_sublattice_a_call_on_card(dev):
+    """At 512^2 (rank 20, leaf 128, q = 1, bench.py's direct2048 keywords)
+    the card's single and batched inverses round differently and the
+    pivotless complex64 recursion carries that to ~1e-4 in both the stored
+    and the compressed solves. The compressed factor one sublattice a call
+    (bench.py's stacked_solve=False) is held to the stored factor built the
+    same way, and the batched one to the batched store, at <= 1e-5; its gap
+    to the batched compressed solve is the dense store's own (+ 1e-5)."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd import compressed as comp
+    from fdtd2d_tpu_torch.fdfd.direct import (
+        StackedFactors, factor, factor_stacked, solve_factored, solve_stacked,
+        stack_coefficients)
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    N, omega = 512, 17e9
+    eps, mu, src = hard_binary_scene(N, seed=3, source_amp=10.0)
+    op = make_operator(eps, mu, 1e-3, 1e-3, omega, pml_thickness=40, device=dev)
+    b = torch.tensor(-1j * omega * src, dtype=torch.complex64, device=dev)
+    nc = N // 2
+    L = comp.hodlr_plan(nc, leaf=128, rank=20)
+    om = comp.make_test_matrices(nc, L, 20, device=dev)
+    loop = comp.solve_compressed(comp.factor_compressed(op, om, L=L, q=1), b)
+    stacked = comp.solve_compressed(StackedFactors(stacked=comp.factor_compressed_stacked(
+        stack_coefficients(op), om, L=L, q=1), shape=op.shape), b)
+    dense_loop = solve_factored(factor(op), b)
+    dense_stacked = solve_stacked(factor_stacked(op), b)
+    assert _rel2(loop, dense_loop.cpu().to(torch.complex128)) <= 1e-5
+    assert _rel2(stacked, dense_stacked.cpu().to(torch.complex128)) <= 1e-5
+    spread = _rel2(dense_loop, dense_stacked.cpu().to(torch.complex128))
+    assert _rel2(loop, stacked.cpu().to(torch.complex128)) <= spread + 1e-5
+
+
+def test_hps_on_card_matches_cpu(dev):
+    """hps_factor / hps_solve at 64^2 on the card: the raw complex64
+    residual < 5e-5 (tests/test_hps.py's bound), and DirectSolver(hps=True)'s
+    refined iterate within 1e-6 of the exact complex128 solve on the CPU."""
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+    from fdtd2d_tpu_torch.fdfd.hps import hps_factor, hps_solve
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    N, omega = 64, 17e9
+    eps, mu, src = _hard(N)
+    op = make_operator(eps, mu, 1e-3, 1e-3, omega, pml_thickness=12, device=dev)
+    b = torch.tensor(-1j * omega * src, dtype=torch.complex64, device=dev)
+    x = hps_solve(hps_factor(op, m=8), b)
+    assert float(torch.linalg.vector_norm(op.apply(x) - b) / torch.linalg.vector_norm(b)) < 5e-5
+    solver = DirectSolver(eps, mu, 1e-3, 1e-3, omega, pml_thickness=12, hps=True, device=dev)
+    x64, trace = solver.solve(src, refine_target=1e-10, return_split=True)
+    assert trace[-1] <= 1e-10
+    assert _rel2(x64, _cpu_exact(eps, mu, omega, 12, src)) < 1e-6
+
+
+def test_tf32_is_off_during_the_factors(dev, monkeypatch):
+    """The pivotless complex64 factors need full-fp32 products: no matmul of
+    the compressed or the HPS factor runs with TF32 on."""
+    from fdtd2d_tpu_torch.fdfd import compressed, hps
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+
+    seen = []
+
+    def watch(fn):
+        def wrapped(*a, **k):
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.get_float32_matmul_precision()))
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(compressed, "_compress_row", watch(compressed._compress_row))
+    monkeypatch.setattr(hps, "_eliminate", watch(hps._eliminate))
+    eps, mu, src = _hard(64)
+    for kw in (dict(compressed=True, rank=8, leaf=8), dict(hps=True)):
+        DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=12, device=dev, **kw)
+    assert len(seen) > 32 and set(seen) == {(False, "highest")}

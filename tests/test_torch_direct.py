@@ -238,27 +238,28 @@ def test_huge_rhs_norms_stay_finite():
     assert trace_1[-2] <= 1e-9 and trace_big[-2] <= 1e-9
 
 
-@pytest.mark.parametrize("mode", ["compressed", "hps"])
-def test_unported_factor_modes_raise(mode):
-    eps, mu, _ = _hard_scene(16)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        DirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=4, device="cpu", **{mode: True})
-
-
-def test_unported_modes_take_the_jax_keywords():
-    """The call of bench.py's direct2048 row (compressed, with rank, leaf,
-    power_iters and stacked_solve) and hps with hps_leaf reach the
-    NotImplementedError that names the item, not a TypeError."""
-    eps, mu, _ = _hard_scene(16)
-    kw = dict(pml_thickness=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        DirectSolver(eps, mu, DX, DX, 17e9, compressed=True, rank=12, leaf=128,
-                     power_iters=2, stacked_solve=False, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        DirectSolver(eps, mu, DX, DX, 17e9, hps=True, hps_leaf=8, **kw)
-    # the five keywords are inert in the ported modes
-    DirectSolver(eps, mu, DX, DX, 17e9, rank=20, leaf=128, power_iters=1,
-                 stacked_solve=True, hps_leaf=8, **kw)
+@pytest.mark.parametrize("kw", [
+    dict(compressed=True, rank=20, leaf=128, power_iters=1, stacked_solve=False),
+    dict(compressed=True, rank=8, leaf=8, power_iters=2, stacked_solve=False),
+    dict(compressed=True, rank=8, leaf=8, power_iters=0),
+    dict(hps=True, hps_leaf=8),
+    dict(rank=20, leaf=128, power_iters=1, stacked_solve=True, hps_leaf=8),
+], ids=["direct2048-keywords", "compressed-loop", "compressed-stacked", "hps", "stored"])
+def test_factor_modes_take_the_jax_keywords_and_refine(kw):
+    """bench.py's direct2048 call (compressed with rank, leaf, power_iters
+    and stacked_solve=False), the compressed mode stacked and as a loop at a
+    depth that compresses, hps with hps_leaf, and the stored mode (where the
+    five keywords are inert) each build and refine to a true 1e-9 on the
+    hard scene at 64^2."""
+    N, omega = 64, 17e9
+    eps, mu, src = _hard_scene(N)
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=12, device="cpu", **kw)
+    assert solver._default_refine_rounds == (40 if kw.get("hps") else 8)
+    assert hasattr(solver, "compressed_bytes") == bool(kw.get("compressed"))
+    assert hasattr(solver, "hps_bytes") == bool(kw.get("hps"))
+    x, trace = solver.solve(src, refine_target=1e-9)
+    assert x.shape == (N, N) and bool(torch.isfinite(x).all())
+    assert trace[-2] <= 1e-9, trace
 
 
 @pytest.mark.parametrize("modes", [("checkpointed", "compressed"), ("compressed", "hps"),
@@ -267,7 +268,7 @@ def test_unported_modes_take_the_jax_keywords():
                          ids="+".join)
 def test_more_than_one_factor_mode_is_a_value_error(modes):
     """As the JAX constructor: more than one of checkpointed/compressed/hps
-    is a ValueError, raised before anything says a mode is not ported."""
+    is a ValueError, raised before anything is factored."""
     from fdtd2d_tpu.fdfd.direct import DirectSolver as JaxDirectSolver
 
     eps, mu, _ = _hard_scene(16)

@@ -1,0 +1,226 @@
+"""The port's HPS nested-dissection solver (fdfd/hps.py) against the JAX
+package's, scipy's spsolve and the block-Thomas leg, as tests/test_hps.py
+holds the JAX package's."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
+import torch
+
+from fdtd2d_tpu.fdfd import hps as jhps
+from fdtd2d_tpu.ops.helmholtz import make_operator as jax_make_operator
+from fdtd2d_tpu_torch import constants
+from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+from fdtd2d_tpu_torch.fdfd import hps
+from fdtd2d_tpu_torch.fdfd.direct import DirectSolver, five_point_coefficients, solve_direct
+from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+DX = 1e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _hard_scene(N, seed=3):
+    return hard_binary_scene(N, seed=seed, sigma=4.0, source_amp=10.0)
+
+
+def _rel(x, ref):
+    x, ref = np.asarray(x), np.asarray(ref)
+    return np.linalg.norm(x - ref) / np.linalg.norm(ref)
+
+
+def _sub_coeffs(N=64, omega=2e10, pml=8, seed=0, parity=(0, 0)):
+    """(d, Ecol, Erow) complex128 coefficients of one sublattice, as
+    tests/test_hps.py draws them."""
+    rng = np.random.default_rng(seed)
+    eps = np.where(rng.standard_normal((N, N)) > 0, 5e-11, 1e-11)
+    mu = np.full((N, N), 1.26e-6)
+    op = make_operator(eps, mu, DX, DX, omega, pml_thickness=pml, dtype=torch.complex128,
+                       device="cpu")
+    d, e, _, s, _ = five_point_coefficients(op)
+    px, py = parity
+    return tuple(a[px::2, py::2].contiguous() for a in (d, e, s))
+
+
+def _scipy_sub_matrix(d, Ecol, Erow):
+    """The symmetrized sublattice 5-point matrix (one coefficient per edge)."""
+    nr, nc = d.shape
+    idx = np.arange(nr * nc).reshape(nr, nc)
+    rows, cols, vals = [], [], []
+
+    def add(r, c, v):
+        rows.extend(r.ravel()); cols.extend(c.ravel()); vals.extend(v.ravel())
+
+    add(idx, idx, d)
+    add(idx[:, :-1], idx[:, 1:], Ecol[:, :-1])
+    add(idx[:, 1:], idx[:, :-1], Ecol[:, :-1])
+    add(idx[:-1, :], idx[1:, :], Erow[:-1, :])
+    add(idx[1:, :], idx[:-1, :], Erow[:-1, :])
+    return sp.csr_matrix((vals, (rows, cols)), shape=(nr * nc, nr * nc))
+
+
+@pytest.mark.parametrize("nr, nc, m", [(32, 32, 8), (64, 32, 8), (48, 48, 12), (16, 64, 4),
+                                       (256, 256, 8)])
+def test_build_plan_equals_jax(nr, nc, m):
+    """Every array of the plan equals the JAX package's, and leaf interiors,
+    the J sets of every level and the root skeleton tile the grid once."""
+    got, want = hps.build_plan(nr, nc, m), jhps.build_plan(nr, nc, m)
+    assert (got.nr, got.nc, len(got.merges)) == (want.nr, want.nc, len(want.merges))
+    assert np.array_equal(got.root_coords, want.root_coords)
+    for a, b in [(got.leaf, want.leaf), *zip(got.merges, want.merges)]:
+        for field in dataclasses.fields(a):
+            x, y = getattr(a, field.name), getattr(b, field.name)
+            assert np.array_equal(x, y) and np.asarray(x).dtype == np.asarray(y).dtype, field.name
+    seen = np.zeros((nr, nc), np.int32)
+    lf = got.leaf
+    for (r0, c0) in lf.origins:
+        seen[r0 + lf.idx_I // m, c0 + lf.idx_I % m] += 1
+    for mp in got.merges:
+        for (r0, c0) in mp.origins:
+            seen[r0 + mp.J_coords[:, 0], c0 + mp.J_coords[:, 1]] += 1
+    seen[got.root_coords[:, 0], got.root_coords[:, 1]] += 1
+    assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize("nr, nc, m, match", [(60, 60, 8, "not divisible"),
+                                              (24, 24, 8, "powers of two")])
+def test_build_plan_rejects_bad_geometry(nr, nc, m, match):
+    for build in (hps.build_plan, jhps.build_plan):
+        with pytest.raises(ValueError, match=match):
+            build(nr, nc, m)
+
+
+@pytest.mark.parametrize("N, m, parity", [(32, 8, (0, 0)), (64, 8, (1, 0)), (64, 16, (0, 1))])
+def test_sublattice_matches_spsolve(N, m, parity):
+    """complex128 agreement with scipy's sparse LU, a rectangular-merge
+    geometry and a larger leaf included."""
+    d, Ecol, Erow = _sub_coeffs(N, parity=parity)
+    nr, nc = d.shape
+    plan = hps.build_plan(nr, nc, m)
+    f = hps.hps_factor_sub(d, Ecol, Erow, plan)
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((nr, nc)) + 1j * rng.standard_normal((nr, nc))
+    x = hps.hps_solve_sub(f, plan, torch.tensor(b)).numpy().ravel()
+    want = spla.spsolve(_scipy_sub_matrix(*(a.numpy() for a in (d, Ecol, Erow))).tocsc(),
+                        b.ravel())
+    assert _rel(x, want) < 1e-10
+
+
+def test_hps_solve_matches_jax_c128():
+    N, omega = 64, 17e9
+    eps, mu, src = _hard_scene(N)
+    b = -1j * omega * src
+    op = make_operator(eps, mu, DX, DX, omega, pml_thickness=12, dtype=torch.complex128,
+                       device="cpu")
+    x = hps.hps_solve(hps.hps_factor(op, m=8), torch.tensor(b))
+    jop = jax_make_operator(eps, mu, DX, DX, omega, pml_thickness=12, dtype=jnp.complex128)
+    want = jhps.hps_solve(jhps.hps_factor(jop, m=8), jnp.asarray(b))
+    assert _rel(x.numpy(), want) <= 1e-10
+
+
+def test_full_operator_c64_matches_direct():
+    """Full outrigger solve in complex64: residual and distance to the
+    block-Thomas leg at the complex64 floor (< 5e-5)."""
+    N, omega = 64, 17e9
+    eps, mu, src = _hard_scene(N)
+    op = make_operator(eps, mu, DX, DX, omega, pml_thickness=12, dtype=torch.complex64,
+                       device="cpu")
+    b = torch.tensor(-1j * omega * src, dtype=torch.complex64)
+    f = hps.hps_factor(op, m=8)
+    assert f.stacked.Yroot.shape[0] == 4
+    x = hps.hps_solve(f, b)
+    assert float(torch.linalg.vector_norm(op.apply(x) - b) / torch.linalg.vector_norm(b)) < 5e-5
+    assert _rel(x.numpy(), solve_direct(op, b).numpy()) < 5e-5
+
+
+def test_factor_bytes_are_predicted_and_lean():
+    """Measured bytes equal the plan's prediction (and JAX's), and the ratio
+    to the stored-W store 4*(N/2)^3*8 B grows past the N ~ 256 crossover."""
+    N = 256
+    eps, mu, _ = _hard_scene(N)
+    op = make_operator(eps, mu, DX, DX, 17e9, pml_thickness=24, dtype=torch.complex64,
+                       device="cpu")
+    assert hps.factor_bytes(hps.hps_factor(op, m=8)) == hps.predicted_factor_bytes(N, m=8)
+    for n in (64, 256, 512, 1024, 2048):
+        assert hps.predicted_factor_bytes(n) == jhps.predicted_factor_bytes(n)
+    # the cells of chip_smoke.py phase 29 and the 2048^2 figure of PERF.md
+    assert [hps.predicted_factor_bytes(n) for n in (512, 1024, 2048)] == [
+        297_205_248, 1_355_677_184, 6_091_963_904]
+    wall = lambda n: 4 * (n // 2) ** 3 * 8  # noqa: E731
+    assert hps.predicted_factor_bytes(1024) < wall(1024) / 3
+    assert hps.predicted_factor_bytes(2048) < wall(2048) / 5
+    assert hps.predicted_factor_bytes(4096) < wall(4096) / 10
+    assert hps.predicted_factor_bytes(2048) / hps.predicted_factor_bytes(1024) < 5.0
+
+
+def test_solver_refined_hard_scene():
+    """DirectSolver(hps=True): the complex128 iterate reaches 1e-8 within the
+    mode's default rounds, and matches the stored-W solver's to 1e-6."""
+    N, omega = 64, 17e9
+    eps, mu, src = _hard_scene(N)
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=12, hps=True, device="cpu")
+    assert solver._default_refine_rounds == 40
+    assert solver.hps_bytes == hps.predicted_factor_bytes(N)
+    assert 0 < solver.factor_growth < np.inf
+    x64, trace = solver.solve(src, refine_target=1e-8, return_split=True)
+    assert trace[-1] < 1e-8
+    ref = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=12, device="cpu")
+    xr, _ = ref.solve(src, refine_target=1e-8, return_split=True)
+    assert _rel(x64.numpy(), xr.numpy()) < 1e-6
+
+
+def test_batched_rhs():
+    """K right-hand sides ride the trailing axis of every product: one
+    factorization, each solve at the complex64 floor (< 5e-5)."""
+    N = 32
+    eps, mu, _ = _hard_scene(N)
+    op = make_operator(eps, mu, DX, DX, 17e9, pml_thickness=8, dtype=torch.complex64,
+                       device="cpu")
+    f = hps.hps_factor(op, m=8)
+    rng = np.random.default_rng(2)
+    bs = torch.tensor(rng.standard_normal((3, N, N)) + 1j * rng.standard_normal((3, N, N)),
+                      dtype=torch.complex64)
+    xs = hps.hps_solve(f, bs)
+    assert xs.shape == bs.shape
+    for i in range(3):
+        res = torch.linalg.vector_norm(op.apply(xs[i]) - bs[i]) / torch.linalg.vector_norm(bs[i])
+        assert float(res) < 5e-5
+        assert torch.allclose(hps.hps_solve(f, bs[i]), xs[i], rtol=0, atol=1e-5 * float(
+            xs[i].abs().max()))
+
+
+def test_warns_past_accuracy_wall(monkeypatch):
+    """Past 1024^2 DirectSolver(hps=True) warns, before the factorization
+    (stubbed out here) is paid for."""
+    def stop(*a, **k):
+        raise InterruptedError("factor reached")
+
+    monkeypatch.setattr(hps, "hps_factor", stop)
+    N = 2048
+    eps = np.full((N, N), constants.EPSILON_0)
+    mu = np.full((N, N), constants.MU_0)
+    with pytest.warns(RuntimeWarning, match="accuracy wall"):
+        with pytest.raises(InterruptedError):
+            DirectSolver(eps, mu, DX, DX, 17e9, hps=True, hps_leaf=8, device="cpu")
+
+
+def test_odd_grid_is_a_value_error():
+    """The four sublattices of an odd grid differ in shape; the JAX package's
+    plans then reject the grid, and the port says why."""
+    N = 33
+    eps, mu, _ = _hard_scene(N)
+    op = make_operator(eps, mu, DX, DX, 17e9, pml_thickness=4, device="cpu")
+    with pytest.raises(ValueError, match="even N"):
+        hps.hps_factor(op, m=8)
+    with pytest.raises(ValueError):
+        jhps.hps_factor(jax_make_operator(eps, mu, DX, DX, 17e9, pml_thickness=4), m=8)

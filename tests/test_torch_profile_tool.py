@@ -209,3 +209,15 @@ def test_fdfd_tiled_and_timedomain_paths():
     b, u, uprev, psi = profile_fdfd._wave_state(bundle)
     assert b.shape == u.shape == uprev.shape == (4, 16, 16) and b.dtype == torch.complex64
     assert not torch.equal(u, uprev) and all(not p.any() for p in psi)
+
+
+def test_fdfd_compressed_and_hps_paths():
+    """``--paths compressed,hps``: bench.py's direct2048 keywords at 2048^2 and
+    the HPS mode's at 1024^2 by default; neither is in the default list."""
+    args = profile_fdfd.parse_args(["--paths", "compressed,hps"])
+    assert args.paths == ["compressed", "hps"] and args.size is None
+    assert "compressed" not in profile_fdfd.DEFAULT_PATHS and "hps" not in profile_fdfd.DEFAULT_PATHS
+    assert profile_fdfd.DIRECT_MODES["compressed"] == (
+        dict(compressed=True, rank=20, leaf=128, power_iters=1), 2048)
+    assert profile_fdfd.DIRECT_MODES["hps"] == (dict(hps=True, hps_leaf=8), 1024)
+

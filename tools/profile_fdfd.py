@@ -4,6 +4,7 @@
     python tools/profile_fdfd.py --paths invdes [--size 250] [--freqs 10] [--decade]
     python tools/profile_fdfd.py --paths tiled,tiledapprox [--size 1024]
     python tools/profile_fdfd.py --paths timedomain [--size 4096]
+    python tools/profile_fdfd.py --paths compressed,hps [--size N]
 
 On the scene of ``bench.py``'s fdfd512 rows (512^2 by default: a 2.5x
 dielectric block, a point source at the centre carrying -1j*omega, dx 1e-3 m,
@@ -45,6 +46,16 @@ omega 17e9, PML 40), for each path of ``--paths``:
   a warm solve (a whole solve is hundreds of thousands of launches: its
   trace is not taken).
 
+- ``compressed`` and ``hps`` (not in the default list): ``DirectSolver`` in its
+  HODLR-compressed mode (bench.py's ``direct2048``: rank 20, leaf 128,
+  ``power_iters=1``; ``--size`` 2048 unless given) or its HPS mode
+  (``hps_leaf=8``; 1024 unless given) on ``hard_binary_scene(N, seed=3,
+  source_amp=10.0)``, 17 GHz, dx 1 mm, PML 40 (``direct_mode_cell``): the
+  factor (seconds, store bytes, peak memory), a cold and a timed warm solve
+  to a true 1e-6, and a warm solve under torch.profiler; its line adds the
+  rounds and ``launches_per_inner_solve``. A 2048^2 compressed solve is
+  ~10^5 launches: give ``--out`` a directory outside ``chiprun_out/``.
+
 It writes each window's Chrome trace to ``--out`` (by default ``profile/`` in
 the repo's git-ignored output directory) and prints one JSON line per path,
 then the card's name and power limit as nvidia-smi gives them. Besides the
@@ -70,7 +81,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from profile_fdtd import summarize  # noqa: E402
 
-PATHS = ("factor", "direct", "fgmres", "invdes", "tiled", "tiledapprox", "timedomain")
+PATHS = ("factor", "direct", "fgmres", "invdes", "tiled", "tiledapprox", "timedomain",
+         "compressed", "hps")
 DEFAULT_PATHS = ["factor", "direct", "fgmres"]
 TOP = 12
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -222,6 +234,43 @@ def tiled_cell(N: int, *, approx: bool, dev, trace: Path) -> dict:
             "profiled": summary}
 
 
+# DirectSolver's keywords of the compressed and HPS cells, and their default sizes
+DIRECT_MODES = {"compressed": (dict(compressed=True, rank=20, leaf=128, power_iters=1), 2048),
+                "hps": (dict(hps=True, hps_leaf=8), 1024)}
+
+
+def direct_mode_cell(mode: str, N: int, *, dev, trace: Path) -> dict:
+    """A ``DirectSolver`` of ``DIRECT_MODES[mode]`` on the hard binary scene
+    at N (17 GHz, dx 1 mm, PML 40): the factor, a cold and a timed warm
+    solve to a true 1e-6, and a profiled warm solve."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+    from fdtd2d_tpu_torch.utils.metrics import Timer
+
+    kw = DIRECT_MODES[mode][0]
+    eps, mu, src = hard_binary_scene(N, seed=3, source_amp=10.0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Timer(dev) as build:
+        solver = DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=40, device=dev, **kw)
+    out = {"size": N, **kw, "factor_s": build.seconds, "factor_peak_gb": _peak_gb(dev),
+           "store_bytes": getattr(solver, "compressed_bytes", getattr(solver, "hps_bytes", None)),
+           "factor_growth": solver.factor_growth}
+    for name in ("cold", "warm"):
+        with Timer(dev) as timer:
+            _, res = solver.solve(src, refine_target=1e-6)
+        out[f"{name}_solve_s"], out[f"{name}_trace"] = timer.seconds, res
+    out["rounds"] = len(res) - 2
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        with Timer(dev) as profiled:
+            solver.solve(src, refine_target=1e-6)
+    prof.export_chrome_trace(str(trace))
+    summary = window_summary(trace, profiled.seconds)
+    out.update(peak_gb=_peak_gb(dev), launches_per_inner_solve=summary["launches"] / out["rounds"],
+               busy_share_unprofiled=summary["device_busy_ms"] / (out["warm_solve_s"] * 1e3),
+               profiled=summary)
+    return out
+
+
 def _wave_state(bundle, seed: int = 0):
     """A seeded random complex64 state, right-hand side and zero filter
     state on the bundle's device."""
@@ -331,6 +380,15 @@ def main(argv=None) -> int:
                           "decade": args.decade, "steps": steps,
                           "trace_file": str(trace.relative_to(ROOT))
                           if trace.is_relative_to(ROOT) else str(trace)}))
+    for path in ("compressed", "hps"):
+        if path not in args.paths:
+            continue
+        n_p = args.size or DIRECT_MODES[path][1]
+        trace = args.out / f"trace_fdfd_{path}_{n_p}.json"
+        cell = direct_mode_cell(path, n_p, dev=dev, trace=trace)
+        print(json.dumps({"path": path, **cell, "trace_file": str(trace.relative_to(ROOT))
+                          if trace.is_relative_to(ROOT) else str(trace)}), flush=True)
+        torch.cuda.empty_cache()
     for path in ("tiled", "tiledapprox", "timedomain"):
         if path not in args.paths:
             continue
@@ -350,7 +408,7 @@ def main(argv=None) -> int:
     src[N // 2, N // 2] = -1j * omega
 
     for path in args.paths:
-        if path in ("invdes", "tiled", "tiledapprox", "timedomain"):
+        if path in ("invdes", "tiled", "tiledapprox", "timedomain", "compressed", "hps"):
             continue
         if path == "factor":
             def run():
