@@ -204,9 +204,10 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
     launches a step (20 steps under torch.profiler); one timed 4096^2
     application with its residual; then ``timedomain4096`` (2.5 transits,
     refined to ``trace[-2] < 1e-6``) after a small warm-up solve. Where
-    ``TD4096_ROUNDS`` applications would take the script past half its time
-    limit, the solve runs at 2048^2 and the 4096^2 solve is left to
-    ``tools/profile_fdfd.py --paths timedomain --size 4096``.
+    ``TD4096_ROUNDS`` applications would take the script past 420 s (the
+    later phases, 31-36 among them, take about 600 s more), the solve runs
+    at 2048^2 and the 4096^2 solve is left to ``tools/profile_fdfd.py
+    --paths timedomain --size 4096``.
 23. The CLI: ``tiled --size 512`` and ``fdfd --size 512 --solver
     timedomain``, ``--device cuda --out ""``, each in its own process; the
     refined iterate's residual <= 1e-6 in each.
@@ -260,6 +261,46 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
     raw backsolve <= 1e-6 (stored, checkpointed; whether bit for bit); the
     compressed raw backsolve reported, within 1e-2 of the stored one, and
     its solve refined to 1e-10 <= 1e-6 from the single-device one.
+31. The sharded FDFD solve (parallel/sharded.py) on meshes of cuda:0: the
+    block matvec on (4,) and (2, 2) meshes at 512^2 (the fdfd512 scene)
+    against ``op.apply``, <= 1e-13 in complex128 (complex64 printed); then
+    ``solve_fdfd_sharded`` at fdfd512iter's configuration (FDM, restart 20,
+    tol 1e-6, maxiter 3000) on (2, 2): the true complex128 residual < 1e-4
+    and <= 1e-4 from the single-device iterate; seconds of each solve,
+    iterations, launches an iteration (one restart cycle under
+    torch.profiler) and the FDM's gathers and bytes; the single device's
+    solve is phase 14's. Where the sharded solve would take the phases past
+    ``MULTIDEVICE_END_S``, maxiter is cut (printed) and the iterate is held
+    to finite values only.
+32. ``run_fdfd_tiled_sharded`` at tiled1024 (the 1.5x block scene, patches
+    of 100, padding 30, solver tol 1e-4, maxiter 300, refined to 1e-6) on 4 x
+    cuda:0: ``trace[-2] < 1e-5``, <= 1e-4 from the single-device two-level
+    solve with the patch level forced on; warm seconds (phase 21 built the
+    same FDM factors), rounds, outer iterations, peak; beside it the single device with patches and
+    with its probe's choice (the coarse level alone at this contrast).
+33. ``TimeDomainSolverSharded`` on (4, 2) meshes of cuda:0: at 96^2 (PML 16)
+    against the CPU's single-device application (<= 1e-4); one 2048^2
+    application cut to 300 steps against the card's single-device one
+    (<= 1e-5) with ms a wave step of each; a solve to ``trace[-2] < 1e-6``
+    at 2048^2, halved down to 256^2 while ``TD_ROUNDS`` applications would
+    take phases 31-36 past ``MULTIDEVICE_END_S`` (the cut is printed).
+34. ``train_step_dp``: ``UNet2D()`` at 256^2, global batch 8, the
+    reference recipe, TF32 convolutions, 3 steps on 2 gloo ranks of cuda:0
+    (spawned processes), against the single-device ``train_step`` on the
+    same batch and draws, held to phase 25's TF32 bounds (loss 1e-3,
+    BatchNorm statistics 1e-2, parameters 1e-5 of each tensor's largest
+    entry plus 2 lr a step) and the ranks' parameters equal; ms a step
+    beside the single device's (the ranks share one card: no scaling). With
+    two cards visible, 2 nccl ranks on two cards as well.
+35. ``simulate_batched``: 8 scenes at 1024^2, 200 steps, per-scene sources,
+    against per-scene ``simulate(backend='torch')`` (<= 1e-6; bit for bit
+    printed); ``solve_fdfd`` with bicgstab (tol 1e-6) and gmres at 512^2
+    with FDM, in complex128: the true residual < 1e-5 (GMRES at tol 1e-6
+    stops at x0 under JAX's stopping rule, printed, so it runs at 1e-6
+    times ||M b|| / ||b||).
+36. ``parallel/dryrun.py::dryrun_multichip(["cuda:0"] * 8)``: every stage
+    of the JAX dry run, each held to its single-device call; then on all
+    visible cards where there are more than one.
 
 Tolerance: 1e-5 relative (max |kernel - plain| / max |plain|), the bound of
 the float64 oracle tests (tests/test_fdtd_oracle.py). The kernel and the
@@ -285,7 +326,10 @@ iterations, rounds, launches and peak memory of phases 21-23, one
 memory of phases 24-27 (no TPU kernel lies on the surrogate's path: its
 convolutions are cuDNN's, and the ``kernels`` line is unchanged), one
 (``direct_modes``) with the parity, times, stores, rounds and peak memory of
-phases 28-30 (no TPU kernel lies on this path either), and the
+phases 28-30 (no TPU kernel lies on this path either), one
+(``multidevice``) with the parity, times, iterations, launches, gathers,
+rounds and peak memory of phases 31-36 (no ``pl.pallas_call`` lies on them;
+K2's block mode runs in the dry run's stages 1, 4b and 4b'), and the
 nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -298,6 +342,7 @@ import importlib.util
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -316,6 +361,8 @@ Z0 = 376.73   # vacuum impedance: scales the random H to the random Ez
 # cores; 11 float32 operations a cell a step (H: 2 x (sub, mul, add); Ez:
 # 3 subs, a mul, an add).
 HBM_BYTES_S, F32_FLOPS, FLOPS_PER_CELL_STEP = 3.35e12, 67e12, 11
+# tensors a later phase compares with (not printed)
+KEPT = {}
 
 
 def roofline_ms(N: int, steps: int):
@@ -661,6 +708,7 @@ def fdfd_phases(dev) -> dict:
     if not res_it.relative_residual < 1e-4:
         raise AssertionError(f"fdfd512iter residual {res_it.relative_residual}")
     it_cpu = cpu_residual(op128_cpu, b512, res_it.x)
+    KEPT["fdfd512iter"] = (res_it.x, iter_s, res_it.iterations)   # phase 31's single device
     out["fdfd512iter"] = {"warm_solve_s": iter_s, "relative_residual": res_it.relative_residual,
                           "cpu_c128_residual": it_cpu, "iterations": res_it.iterations,
                           "converged": res_it.converged, "peak_gb": peak_gb(dev)}
@@ -950,13 +998,14 @@ def tiled_phase(dev, profile_fdfd) -> dict:
 TD4096_ROUNDS = 15
 
 
-def timedomain_phase(dev, profile_fdfd, t_script: float, budget_s: float = 600.0) -> dict:
+def timedomain_phase(dev, profile_fdfd, t_script: float, budget_s: float = 420.0) -> dict:
     """Phase 22: the time-domain solver on the card: one wave run at 96^2
     against the CPU's, ms a wave step at 4096^2 beside its bound, one timed
     4096^2 application with its residual, and bench.py's timedomain4096
     solve, at 2048^2 where TD4096_ROUNDS applications at 4096^2 would take
-    the script past ``budget_s`` (half its time limit; the 4096^2 solve is
-    then tools/profile_fdfd.py's ``--paths timedomain --size 4096``)."""
+    the script past ``budget_s`` (the phases after it take about 600 s more;
+    the 4096^2 solve is then tools/profile_fdfd.py's ``--paths timedomain
+    --size 4096``)."""
     from fdtd2d_tpu_torch.fdfd.timedomain import (TimeDomainSolver, _split_sub,
                                                   build_wave_bundle, wave_run)
 
@@ -1395,6 +1444,410 @@ def sharded_direct_phase(dev) -> dict:
         for k, v in out.items() if k != "batching"))
     done(t0, "one sublattice a call vs batched: " + ", ".join(
         f"{k} {v:.3e}" for k, v in batching.items()))
+    return out
+
+
+# -- phases 31-36: the multi-device legs, every mesh entry on the one card ------------------
+
+# The script's end that phases 31-36 plan for: a gated part runs in full where
+# the time so far, its estimate and what the later phases take (``reserve_s``)
+# stay under it, else it is cut and the cut printed (direct2048stored, after
+# them, has its own gate at 1080 s). On an H100 at 700 W phases 1-30 take
+# about 680 s and 31-36 about 200 s at their least: 900 keeps the script near
+# 930 s of its 1200 s limit.
+MULTIDEVICE_END_S = 900.0
+# refinement rounds of the time-domain solve to 1e-6 (10-11 at 256^2-2048^2 on
+# an H100)
+TD_ROUNDS = 12
+
+
+def left_s(t_script: float, reserve_s: float) -> float:
+    """Seconds a gated part may take before MULTIDEVICE_END_S, the later
+    phases' ``reserve_s`` kept back."""
+    return MULTIDEVICE_END_S - reserve_s - (time.perf_counter() - t_script)
+
+
+def profiled_launches(fn, dev, profile_fdfd, name: str) -> int:
+    """Kernel launches of ``fn()`` under torch.profiler (its Chrome trace is
+    written under build/ and removed)."""
+    trace = ROOT / "build" / f"{name}.json"
+    trace.parent.mkdir(exist_ok=True)
+    with torch.profiler.profile(activities=profile_fdfd.ACTIVITIES) as prof:
+        _, secs = timed(fn, dev)
+    prof.export_chrome_trace(str(trace))
+    summary = profile_fdfd.window_summary(trace, secs)
+    trace.unlink()
+    return summary["launches"]
+
+
+def sharded_fdfd_phase(dev, profile_fdfd, t_script: float, reserve_s: float) -> dict:
+    """Phase 31: the block matvec on (4,) and (2, 2) meshes of the card at
+    512^2 against op.apply (complex128 <= 1e-13; complex64 printed), then
+    solve_fdfd_sharded at fdfd512iter's configuration on (2, 2) beside the
+    single-device solve."""
+    from fdtd2d_tpu_torch import constants
+    from fdtd2d_tpu_torch.fdfd.solver import resolve_preconditioner, solve_fdfd
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+    from fdtd2d_tpu_torch.parallel import make_mesh, shard_operator, sharded, solve_fdfd_sharded
+
+    t0 = phase("31. sharded FDFD: the block matvec on (4,) and (2, 2) meshes of cuda:0 at 512^2; "
+               "solve_fdfd_sharded at fdfd512iter's configuration on (2, 2)")
+    N, omega, dx = 512, 17e9, 1e-3
+    eps, mu, src = fdfd512_scene(N, omega, constants)
+    rng = np.random.default_rng(0)
+    xh = rng.standard_normal((N, N)) + 1j * rng.standard_normal((N, N))
+    out = {"matvec_rel_err": {}}
+    for dtype in (torch.complex128, torch.complex64):
+        op = make_operator(eps, mu, dx, dx, omega, pml_thickness=40, dtype=dtype, device=dev)
+        x = torch.tensor(xh, dtype=dtype, device=dev)
+        want = op.apply(x)
+        for shape in ((4,), (2, 2)):
+            sop = shard_operator(op, make_mesh(shape, devices=[dev] * 4))
+            err = complex_rel_err(sop.layout.gather(sop.apply(sop.layout.scatter(x))), want)
+            out["matvec_rel_err"][f"{shape} {str(dtype)[6:]}"] = err
+            if dtype == torch.complex128 and not err <= 1e-13:
+                raise AssertionError(f"sharded matvec on {shape} in complex128: {err:.3e}")
+    print("   matvec vs op.apply: " + ", ".join(f"{k} {v:.3e}"
+                                               for k, v in out["matvec_rel_err"].items()))
+    op = make_operator(eps, mu, dx, dx, omega, pml_thickness=40, device=dev)
+    M, _ = resolve_preconditioner(op, "fdm")
+    b = torch.tensor(src, dtype=torch.complex64, device=dev)
+    mesh = make_mesh((2, 2), devices=[dev] * 4)
+    kw = dict(preconditioner=M, tol=1e-6, maxiter=3000, restart=20)
+    cycle = {**kw, "maxiter": 20}
+    solve_fdfd_sharded(op, b, mesh, **cycle)   # warm-up: one restart cycle
+    _, cycle_s = timed(lambda: solve_fdfd_sharded(op, b, mesh, **cycle), dev)
+    launches = {"single": profiled_launches(lambda: solve_fdfd(op, b, **cycle), dev,
+                                            profile_fdfd, "fgmres_cycle") / 20,
+                "sharded": profiled_launches(lambda: solve_fdfd_sharded(op, b, mesh, **cycle),
+                                             dev, profile_fdfd, "fgmres_cycle_sharded") / 20}
+    # the single device's warm fdfd512iter solve is phase 14's
+    single_x, single_s, single_its = KEPT.pop("fdfd512iter")
+    estimate, left = cycle_s * kw["maxiter"] / 20, left_s(t_script, reserve_s)
+    if estimate > left:
+        kw["maxiter"] = 20 * max(int(left / cycle_s), 5)
+        print(f"   cut: the sharded solve would take about {estimate:.0f} s, {left:.0f} s are "
+              f"left; maxiter 3000 -> {kw['maxiter']} (the iterate is then held to the true "
+              f"residual only)")
+    sharded.fdm_gathers = sharded.fdm_gather_bytes = sharded.strip_copies = 0
+    got, sharded_s = timed(lambda: solve_fdfd_sharded(op, b, mesh, **kw), dev)
+    op128 = make_operator(eps, mu, dx, dx, omega, pml_thickness=40, dtype=torch.complex128,
+                          device=dev)
+    b128 = b.to(torch.complex128)
+    true_res = float(torch.linalg.vector_norm(op128.residual(b128, got.x.to(torch.complex128)))
+                     / torch.linalg.vector_norm(b128))
+    diff = complex_rel_err(got.x, single_x)
+    full = kw["maxiter"] == 3000
+    out["solve"] = {
+        "mesh": [2, 2], "maxiter": kw["maxiter"], "restart": 20, "tol": 1e-6,
+        "sharded_s": sharded_s, "single_device_s_phase_14": single_s,
+        "iterations": got.iterations, "single_iterations": single_its,
+        "true_c128_residual": true_res, "rel_err_to_single_device": diff,
+        "launches_per_iteration": launches, "fdm_gathers": sharded.fdm_gathers,
+        "fdm_gather_bytes": sharded.fdm_gather_bytes,
+        "strip_copies_per_iteration": sharded.strip_copies / max(got.iterations, 1)}
+    if not ((true_res < 1e-4 and diff <= 1e-4) if full else bool(torch.isfinite(got.x).all())):
+        raise AssertionError(f"solve_fdfd_sharded at fdfd512iter: {out['solve']}")
+    done(t0, f"matvec c128 <= 1e-13; fdfd512iter on (2, 2): {sharded_s:.2f} s (single device "
+             f"{single_s:.2f} s, phase 14), {got.iterations} iterations, true residual "
+             f"{true_res:.2e}, {diff:.2e} from the single device; launches an iteration "
+             f"{launches['sharded']:.0f} (single {launches['single']:.0f}); "
+             f"{sharded.fdm_gathers} FDM gathers, {sharded.fdm_gather_bytes / 1e9:.2f} GB")
+    return out
+
+
+def sharded_tiled_phase(dev, profile_fdfd) -> dict:
+    """Phase 32: run_fdfd_tiled_sharded at tiled1024 on 4 x cuda:0 against
+    the single-device two-level solve with the patch level forced on, and
+    that solver's coarse level alone (its probe's choice)."""
+    from fdtd2d_tpu_torch.fdfd.tiled import TiledSolver
+    from fdtd2d_tpu_torch.parallel import make_mesh, tiled_sharded
+    from fdtd2d_tpu_torch.parallel.tiled_sharded import run_fdfd_tiled_sharded
+
+    t0 = phase("32. run_fdfd_tiled_sharded at tiled1024 on 4 x cuda:0 (the patch level at full "
+               "size) vs the single-device two-level solve, patches forced on")
+    N, omega, dx = 1024, 17e9, 1e-3
+    eps, mu, src = profile_fdfd.block_scene(N)
+    geo = dict(patch_size=100, padding=30, pml_thickness=10, global_pml_thickness=40,
+               inner_iters=8)
+    kw = dict(solver_tol=1e-4, solver_maxiter=300, refine_target=1e-6)
+    mesh = make_mesh((4,), axis_names=("p",), devices=[dev] * 4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tiled_sharded.applications = 0
+    # warm: phase 21's tiled1024 built the same FDM factors (cached on the host)
+    (x, trace), warm_s = timed(lambda: run_fdfd_tiled_sharded(eps, mu, dx, dx, omega, src, mesh,
+                                                              **geo, **kw), dev)
+    peak = peak_gb(dev)
+    solver = TiledSolver(eps, mu, dx, dx, omega, outer_restart=30, device=dev, **geo)
+    (want, wtrace), forced_s = timed(lambda: solver.solve(src, adaptive=False, **kw), dev)
+    forced_its = list(solver.outer_iterations)
+    (_, ctrace), coarse_s = timed(lambda: solver.solve(src, adaptive=True, **kw), dev)
+    diff = complex_rel_err(x, want)
+    out = {"geometry": geo, **kw, "patches": len(solver.origins), "mesh": [4],
+           "warm_s": warm_s, "trace": trace, "rounds": len(trace) - 2,
+           "outer_iterations": tiled_sharded.applications, "peak_gb": peak,
+           "rel_err_to_single_device": diff,
+           "single_device_patches_forced": {"seconds": forced_s, "trace": wtrace,
+                                            "outer_iterations": forced_its},
+           "single_device_probe": {"decision": "two-level" if solver._patch_decision
+                                   else "coarse-only", "contractions": solver._patch_probe,
+                                   "seconds": coarse_s, "trace": ctrace,
+                                   "outer_iterations": list(solver.outer_iterations)}}
+    out["patch_level_beats_coarse"] = forced_s < coarse_s
+    if not (trace[-2] < 1e-5 and diff <= 1e-4 and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"sharded tiled1024: {out}")
+    del solver, x, want
+    torch.cuda.empty_cache()
+    done(t0, f"warm {warm_s:.2f} s, {len(trace) - 2} rounds, "
+             f"{tiled_sharded.applications} outer iterations, peak {peak:.2f} GB, trace "
+             f"{[f'{t:.2e}' for t in trace]}, {diff:.2e} from the single device; single device "
+             f"with patches {forced_s:.2f} s {forced_its}, coarse level alone {coarse_s:.2f} s "
+             f"({out['single_device_probe']['decision']}): the patch level "
+             f"{'beats' if out['patch_level_beats_coarse'] else 'does not beat'} it")
+    return out
+
+
+def sharded_timedomain_phase(dev, profile_fdfd, t_script: float, reserve_s: float) -> dict:
+    """Phase 33: TimeDomainSolverSharded on (4, 2) meshes of the card: a 96^2
+    application against the CPU's single-device one (<= 1e-4); one 2048^2
+    application (cut to 300 steps) against the card's single-device one
+    (<= 1e-5) with ms a wave step of each; a solve to 1e-6 at the largest
+    of 2048^2, 1024^2, 512^2 and 256^2 that the time estimate admits."""
+    from fdtd2d_tpu_torch.fdfd.timedomain import TimeDomainSolver
+    from fdtd2d_tpu_torch.parallel import make_mesh, timedomain_sharded
+    from fdtd2d_tpu_torch.parallel.timedomain_sharded import TimeDomainSolverSharded
+
+    t0 = phase("33. TimeDomainSolverSharded on (4, 2) meshes of cuda:0: 96^2 vs the CPU, one "
+               "2048^2 application vs the single device, a solve to 1e-6")
+    omega, dx, out = 17e9, 1e-3, {}
+    mesh = make_mesh((4, 2), axis_names=("sub", "c"), devices=[dev] * 8)
+    axes = dict(sub_axis="sub", col_axis="c")
+    # at 96^2 a column block holds 24 sublattice columns: PML 16 (strips of 8)
+    eps, mu, src = profile_fdfd.block_scene(96)
+    b = torch.tensor(-1j * omega * src, dtype=torch.complex64)
+    b = b / torch.linalg.vector_norm(b)
+    card = TimeDomainSolverSharded(eps, mu, dx, dx, omega, mesh, pml_thickness=16, device=dev,
+                                   **axes).precondition(b.to(dev))
+    cpu = TimeDomainSolver(eps, mu, dx, dx, omega, pml_thickness=16, device="cpu").precondition(b)
+    out["rel_err_96_vs_cpu"] = complex_rel_err(card.cpu(), cpu)
+    if not out["rel_err_96_vs_cpu"] <= 1e-4:
+        raise AssertionError(f"sharded wave run 96^2 vs the CPU: {out['rel_err_96_vs_cpu']:.3e}")
+
+    # one application at 2048^2, cut to APPLY_STEPS steps (a settled solve's
+    # applications are 4284 steps: the time estimate scales them)
+    N, APPLY_STEPS = 2048, 300
+    eps, mu, src = profile_fdfd.block_scene(N)
+    cut = dict(transits=2.5, steps_override=APPLY_STEPS, device=dev)
+    single = TimeDomainSolver(eps, mu, dx, dx, omega, **cut)
+    shd = TimeDomainSolverSharded(eps, mu, dx, dx, omega, mesh, **cut, **axes)
+    unit = torch.tensor(src, dtype=torch.complex64, device=dev)
+    single.precondition(unit)   # warm-up: both at 2048^2
+    shd.precondition(unit)
+    want, single_s = timed(lambda: single.precondition(unit), dev)
+    timedomain_sharded.strip_copies = 0
+    got, sharded_s = timed(lambda: shd.precondition(unit), dev)
+    steps = single.steps_per_apply
+    ms_step = sharded_s / steps * 1e3
+    out["application_2048"] = {
+        "steps": steps, "rel_err_to_single_device": complex_rel_err(got, want),
+        "equal": bool(torch.equal(got, want)), "sharded_s": sharded_s, "single_device_s": single_s,
+        "sharded_ms_per_step": ms_step, "single_device_ms_per_step": single_s / steps * 1e3,
+        "strip_copies_per_step": timedomain_sharded.strip_copies / steps}
+    if not out["application_2048"]["rel_err_to_single_device"] <= 1e-5:
+        raise AssertionError(f"sharded application at 2048^2: {out['application_2048']}")
+    del single, shd, got, want
+    torch.cuda.empty_cache()
+    print(f"   one application at 2048^2 ({steps} steps): sharded {ms_step:.3f} ms a step, single "
+          f"device {single_s / steps * 1e3:.3f} ms a step; equal: "
+          f"{out['application_2048']['equal']}")
+
+    # the solve: the 8 blocks' step is launch bound (about the same ms at every
+    # size), so a solve takes about TD_ROUNDS x its steps an application x
+    # ms_step; the largest size whose estimate fits what is left is solved,
+    # 256^2 at least (the least whose two column blocks hold the strips of
+    # the PML of 40)
+    left = left_s(t_script, reserve_s)
+    size = shd = estimate = None
+    for n in (256, 512, 1024, 2048):
+        eps, mu, src_n = profile_fdfd.block_scene(n)
+        cand = TimeDomainSolverSharded(eps, mu, dx, dx, omega, mesh, transits=2.5, device=dev,
+                                       **axes)
+        est = TD_ROUNDS * cand.steps_per_apply * ms_step / 1e3
+        if shd is not None and est > left:
+            break
+        size, shd, estimate, src = n, cand, est, src_n
+    if size != N:
+        print(f"   cut: {left:.0f} s left; solving at {size}^2 (about {estimate:.0f} s), not "
+              f"{N}^2")
+    torch.cuda.reset_peak_memory_stats(dev)
+    (x, trace), solve_s = timed(lambda: shd.solve(src, refine_target=1e-6), dev)
+    out["solve"] = {"size": size, "cut_from": N if size != N else None, "seconds": solve_s,
+                    "estimate_s": estimate, "trace": trace, "rounds": len(trace) - 2,
+                    "steps_per_apply": shd.steps_per_apply, "peak_gb": peak_gb(dev)}
+    if not (trace[-2] < 1e-6 and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"sharded timedomain{size} did not converge: {trace}")
+    del shd, x
+    torch.cuda.empty_cache()
+    done(t0, f"96^2 vs CPU {out['rel_err_96_vs_cpu']:.3e}; timedomain{size} on (4, 2): "
+             f"{solve_s:.2f} s, {len(trace) - 2} rounds of {out['solve']['steps_per_apply']} "
+             f"steps, trace {[f'{t:.2e}' for t in trace]}")
+    return out
+
+
+def dp_train_phase(dev) -> dict:
+    """Phase 34: the data-parallel train step at full width (UNet2D() at
+    256^2, global batch 8, the reference recipe, TF32 convolutions) on 2
+    gloo ranks of cuda:0, 3 steps, against the single-device train_step on
+    the same batch and draws; 2 nccl ranks on 2 cards where there are."""
+    from fdtd2d_tpu_torch.parallel import train_dp
+
+    t0 = phase("34. train_step_dp at full width: UNet2D() at 256^2, global batch 8, 2 gloo ranks "
+               "on cuda:0, 3 steps, vs the single-device train_step")
+    spec = dict(model={}, dtype=torch.float32, seed=0, steps=3,
+                batch=train_dp.random_batch(8, 256), recipe={}, devices=[str(dev)] * 2)
+    lr = 3e-5
+    out = {}
+    pairs = [("gloo, one card", [str(dev)] * 2)]
+    if torch.cuda.device_count() > 1:
+        pairs.append(("nccl, two cards", ["cuda:0", "cuda:1"]))
+    ref = train_dp.reference_steps(spec, dev)
+    for name, devices in pairs:
+        work = ROOT / "build" / f"ranks_{devices[-1].replace(':', '')}"
+        if work.exists():
+            shutil.rmtree(work)
+        work.mkdir(parents=True)
+        ranks = train_dp.train_ranks([{**spec, "devices": devices}], str(work), timeout=300)[0]
+        shutil.rmtree(work)
+        # phase 25's TF32 bounds (card against CPU): the loss 1e-3 relative,
+        # the BatchNorm statistics 1e-2 relative, each parameter tensor within
+        # 1e-5 of its largest entry plus 2 lr a step
+        loss_err = max(abs(a - c) / abs(c) for r in ranks for a, c in zip(r["losses"],
+                                                                          ref["losses"]))
+        stat_err = max(float((r["params"][k] - v).abs().max() / v.abs().max())
+                       for r in ranks for k, v in ref["params"].items() if "running" in k)
+        param_ok = all(float((r["params"][k] - v).abs().max())
+                       <= 1e-5 * float(v.abs().max()) + 2 * lr * spec["steps"]
+                       for r in ranks for k, v in ref["params"].items()
+                       if "running" not in k and v.is_floating_point())
+        same = train_dp.max_param_diff(ranks[0]["params"], ranks[1]["params"])
+        out[name] = {"devices": devices, "backend": train_dp.backend_for(devices),
+                     "losses": [r["losses"] for r in ranks], "loss_rel_err": loss_err,
+                     "batch_stats_rel_err": stat_err, "params_within_bound": param_ok,
+                     "rank_param_diff": same,
+                     "ms_per_step": [[s * 1e3 for s in r["seconds"]] for r in ranks]}
+        if not (loss_err <= 1e-3 and stat_err <= 1e-2 and param_ok and same == 0.0):
+            raise AssertionError(f"train_step_dp ({name}): {out[name]}")
+        print(f"   {name}: losses {ranks[0]['losses']}, {loss_err:.2e} from the single device, "
+              f"statistics {stat_err:.2e}; ms a step (last) "
+              f"{[round(r['seconds'][-1] * 1e3, 2) for r in ranks]}")
+    out["single_device"] = {"losses": ref["losses"],
+                            "ms_per_step": [s * 1e3 for s in ref["seconds"]]}
+    done(t0, f"single device {ref['seconds'][-1] * 1e3:.2f} ms a step (last of 3); the ranks "
+             f"share one card: no scaling")
+    return out
+
+
+def batched_and_methods_phase(dev) -> dict:
+    """Phase 35: simulate_batched (B = 8 at 1024^2, 200 steps, per-scene
+    sources) against per-scene simulate(backend='torch'); solve_fdfd with
+    bicgstab and gmres at 512^2 with FDM, in complex128."""
+    from fdtd2d_tpu_torch import constants
+    from fdtd2d_tpu_torch.fdfd.solver import resolve_preconditioner, solve_fdfd
+    from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, simulate, simulate_batched
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    t0 = phase("35. simulate_batched (8 scenes at 1024^2, 200 steps) vs per-scene simulate; "
+               "solve_fdfd bicgstab and gmres at 512^2 with FDM")
+    N, B = 1024, 8
+    rng = np.random.default_rng(5)
+    eps = constants.EPSILON_0 * (1.0 + 3.0 * rng.random((B, N, N)))
+    mu = np.full((B, N, N), constants.MU_0)
+    sources = [(int(x), int(y)) for x, y in rng.integers(100, N - 100, (B, 2))]
+    cfg = FDTDConfig(dt=DT, dx=DX, nsteps=200, source_xy=sources[0], source_fc=FC,
+                     backend="torch", device=str(dev))
+    (Ez, Hx, Hy), batched_s = timed(lambda: simulate_batched(eps, mu, cfg, sources)[0], dev)
+    worst, equal, per_s = 0.0, True, 0.0
+    for k in range(B):
+        (e, hx, hy), secs = timed(lambda: simulate(
+            eps[k], mu[k], dataclasses.replace(cfg, source_xy=sources[k]))[0], dev)
+        per_s += secs
+        for a, c in ((Ez[k], e), (Hx[k], hx), (Hy[k], hy)):
+            worst = max(worst, rel_err(a, c))
+            equal &= bool(torch.equal(a, c))
+    out = {"simulate_batched": {"scenes": B, "size": N, "steps": 200, "rel_err": worst,
+                                "bit_for_bit": equal, "batched_s": batched_s,
+                                "per_scene_total_s": per_s}}
+    if not worst <= 1e-6:
+        raise AssertionError(f"simulate_batched vs per-scene simulate: {worst:.3e}")
+    del Ez, Hx, Hy
+    print(f"   simulate_batched: {worst:.3e} from per-scene simulate (bit for bit: {equal}); "
+          f"{batched_s:.3f} s batched, {per_s:.3f} s scene by scene")
+
+    M512, omega, dx = 512, 17e9, 1e-3
+    e5, m5, s5 = fdfd512_scene(M512, omega, constants)
+    # complex128: in complex64 FDM-BiCGSTAB does not settle on this scene
+    # (nor does the JAX package's: its residual wanders in both)
+    op = make_operator(e5, m5, dx, dx, omega, pml_thickness=40, dtype=torch.complex128,
+                       device=dev)
+    M, _ = resolve_preconditioner(op, "fdm")
+    b = torch.tensor(s5, dtype=torch.complex128, device=dev)
+    # GMRES stops when ||M (b - A x)|| <= tol ||b||, as JAX's does: with the FDM
+    # inverse shrinking norms by ||M b|| / ||b||, tol 1e-6 stops it at x0, so it
+    # runs at tol 1e-6 times that ratio (the preconditioned residual down 1e6)
+    ratio = float(torch.linalg.vector_norm(M(b)) / torch.linalg.vector_norm(b))
+    at_default = solve_fdfd(op, b, method="gmres", preconditioner=M, tol=1e-6, maxiter=2)
+    out["gmres_at_tol_1e-6"] = {"iterations": at_default.iterations,
+                                "relative_residual": at_default.relative_residual}
+    for method, tol, maxiter in (("bicgstab", 1e-6, 2000), ("gmres", 1e-6 * ratio, 50)):
+        res, secs = timed(lambda: solve_fdfd(op, b, method=method, preconditioner=M, tol=tol,
+                                             maxiter=maxiter, restart=20), dev)
+        true_res = float(torch.linalg.vector_norm(op.residual(b, res.x))
+                         / torch.linalg.vector_norm(b))
+        out[method] = {"dtype": "complex128", "tol": tol, "maxiter": maxiter, "seconds": secs,
+                       "iterations": res.iterations, "relative_residual": res.relative_residual,
+                       "true_c128_residual": true_res}
+        if not (true_res < 1e-5 and bool(torch.isfinite(res.x).all())):
+            raise AssertionError(f"solve_fdfd({method}) at 512^2: {out[method]}")
+        print(f"   {method} (tol {tol:.1e}): {secs:.3f} s, {res.iterations} iterations, "
+              f"true residual {true_res:.2e}")
+    out["fdm_norm_ratio"] = ratio
+    done(t0, f"gmres at tol 1e-6 stops at x0 ({at_default.iterations} iterations: "
+             f"||M b|| / ||b|| = {ratio:.2e}), as JAX's stopping rule does")
+    return out
+
+
+def dryrun_phase() -> dict:
+    """Phase 36: parallel/dryrun.py on 8 entries of cuda:0, then on every
+    visible card (cycled to 8 entries) where there is more than one."""
+    from fdtd2d_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = phase("36. dryrun_multichip(['cuda:0'] * 8)")
+    work = ROOT / "build" / "dryrun"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"cuda:0 x 8": dryrun_multichip(["cuda:0"] * 8, workdir=str(work))}
+    count = torch.cuda.device_count()
+    if count > 1:
+        devices = [f"cuda:{i % count}" for i in range(8)]
+        out[f"{count} cards"] = dryrun_multichip(devices, workdir=str(work))
+    shutil.rmtree(work)
+    done(t0, f"{len(out['cuda:0 x 8'])} stages within their bounds; "
+             + ("one card: no copy between two cards ran" if count == 1
+                else f"{count} cards: strips and gathers crossed cards"))
+    return out
+
+
+def multidevice_phases(dev, profile_fdfd, t_script: float) -> dict:
+    """Phases 31-36; returns the numbers of the ``{"multidevice": ...}``
+    line."""
+    t_start = time.perf_counter()
+    out = {"sharded_fdfd": sharded_fdfd_phase(dev, profile_fdfd, t_script, reserve_s=170.0),
+           "sharded_tiled": sharded_tiled_phase(dev, profile_fdfd),
+           "sharded_timedomain": sharded_timedomain_phase(dev, profile_fdfd, t_script,
+                                                          reserve_s=100.0),
+           "train_dp": dp_train_phase(dev),
+           "batched_and_methods": batched_and_methods_phase(dev),
+           "dryrun": dryrun_phase()}
+    out["phases_31_36_s"] = time.perf_counter() - t_start
     return out
 
 
@@ -1978,9 +2431,10 @@ def main() -> int:
     direct_modes, stored_estimate_s, scene2048 = compressed_phase(dev)
     direct_modes["hps"] = hps_phase(dev)
     direct_modes["sharded_512"] = sharded_direct_phase(dev)
+    direct_modes["phases_28_30_s"] = time.perf_counter() - t_direct
+    multidevice = multidevice_phases(dev, profile_fdfd, t_script)
     direct_modes["direct2048stored"] = stored2048_phase(dev, scene2048, stored_estimate_s,
                                                         t_script)
-    direct_modes["phases_28_30_s"] = time.perf_counter() - t_direct
 
     print(json.dumps({"kernels": [{
         "name": "fdtd_fused (K1)", "route": "cuda",
@@ -2067,6 +2521,8 @@ def main() -> int:
                                     **surrogate}}))
     print(json.dumps({"direct_modes": {"card": info["name"], "power_limit": info["power_limit"],
                                        **direct_modes}}))
+    print(json.dumps({"multidevice": {"card": info["name"], "power_limit": info["power_limit"],
+                                      "cards_visible": torch.cuda.device_count(), **multidevice}}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,6 +4,7 @@ from fdtd2d_tpu_torch.core.sources import (
     ricker_amplitude, sinusoidal_amplitude, point_source, source_amplitudes,
 )
 from fdtd2d_tpu_torch.core.guards import check_courant, check_resolution
+from fdtd2d_tpu_torch.core.geometry import RegionDrawer
 
 __all__ = [
     "grid_init",
@@ -18,4 +19,5 @@ __all__ = [
     "source_amplitudes",
     "check_courant",
     "check_resolution",
+    "RegionDrawer",
 ]

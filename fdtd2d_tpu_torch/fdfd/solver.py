@@ -9,8 +9,11 @@ Preconditioners:
 - "jacobi": diagonal scaling.
 - None: raw Krylov.
 
-The JAX package's ``bicgstab`` and ``gmres`` methods are ``jax.scipy``
-library solvers; they are not ported yet and raise.
+Methods: "fgmres" (default), and "bicgstab" and "gmres", the JAX package's
+``jax.scipy.sparse.linalg`` solvers, as torch loops that follow them step by
+step (ops/krylov.py): BiCGSTAB to at most ``maxiter`` iterations, GMRES
+(left-preconditioned, batched Arnoldi) to at most ``maxiter`` restart cycles
+of ``restart``.
 
 A stacked operator (ops/helmholtz.py ``stack_operators``) solves its F
 systems as one batched FGMRES, the port's form of ``jax.vmap`` of the JAX
@@ -29,7 +32,7 @@ import torch
 from fdtd2d_tpu_torch.fdfd.refine import refine, true_relative_residual
 from fdtd2d_tpu_torch.ops.dst import dst2d
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator, make_operator
-from fdtd2d_tpu_torch.ops.krylov import fgmres
+from fdtd2d_tpu_torch.ops.krylov import Vectors, bicgstab, fgmres, gmres
 
 
 def shifted_laplacian_preconditioner(
@@ -141,11 +144,7 @@ def solve_fdfd(
     callable (e.g. a prebuilt :class:`~fdtd2d_tpu_torch.ops.fdm.FDMPreconditioner`).
     ``x0``: a warm start, (Nx, Ny) or flattened; zero when None.
     """
-    if method in ("bicgstab", "gmres"):
-        raise NotImplementedError(
-            f"method {method!r} (a jax.scipy library solver in the JAX package) is "
-            f"not ported yet (ROADMAP Queue 1); use method='fgmres'")
-    if method != "fgmres":
+    if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     M, builtin = resolve_preconditioner(op, preconditioner)
     if builtin == "dst":
@@ -156,12 +155,37 @@ def solve_fdfd(
     if x0 is not None:
         x0 = x0.reshape(op.field_shape).to(op.dtype)
     batched = bool(op.batch_shape)
-    out = fgmres(op.apply, b2, M, x0=x0, restart=restart, maxiter=maxiter, tol=tol,
-                 batched=batched)
-    res = out.relative_residual
-    converged = [r < 10 * tol for r in res] if batched else res < 10 * tol
-    return SolveResult(x=out.x, relative_residual=res, converged=converged,
-                       iterations=out.iterations)
+    if method != "fgmres" and batched:
+        raise ValueError(f"method {method!r} solves one system; a stacked operator "
+                         f"takes method='fgmres'")
+    return krylov_solve(op.apply, b2, M, Vectors(batched), method=method, tol=tol,
+                        maxiter=maxiter, restart=restart, x0=x0)
+
+
+METHODS = ("fgmres", "bicgstab", "gmres")
+
+
+def krylov_solve(matvec, b, M, vectors: Vectors, *, method: str, tol: float, maxiter: int,
+                 restart: int, x0=None) -> SolveResult:
+    """The Krylov loop of ``method`` on ``vectors`` (tensors, or the block
+    fields of parallel/sharded.py), with the JAX package's arguments: FGMRES
+    and GMRES restart every ``restart`` iterations, ``maxiter`` counts
+    FGMRES's iterations, GMRES's restart cycles and BiCGSTAB's iterations.
+    The residual is the true one in the solve's precision."""
+    if method == "fgmres":
+        out = fgmres(matvec, b, M, x0=x0, restart=restart, maxiter=maxiter, tol=tol,
+                     vectors=vectors)
+        x, res, its = out.x, out.relative_residual, out.iterations
+    else:
+        solver = bicgstab if method == "bicgstab" else gmres
+        kw = dict(restart=restart) if method == "gmres" else {}
+        out = solver(matvec, b, M, x0=x0, tol=tol, maxiter=maxiter, vectors=vectors, **kw)
+        x, its = out.x, out.iterations
+        bn = vectors.norm(b)
+        res = float(vectors.norm(vectors.sub(matvec(x), b))
+                    / torch.where(bn == 0, torch.ones_like(bn), bn))
+    converged = [r < 10 * tol for r in res] if vectors.batched else res < 10 * tol
+    return SolveResult(x=x, relative_residual=res, converged=converged, iterations=its)
 
 
 def run_fdfd(eps, mu, dx, dy, omega, source, *, pml_thickness: int = 40,

@@ -86,7 +86,7 @@ class _Plan:
     ph_avg: torch.Tensor    # (n_avg,) complex64 phasor-average weights
     dcr: torch.Tensor       # (4, nr, nc, 1) float32: diagonal of M_col + M_row
     couplings: tuple        # ((axis, shift, coefficient (.., 1)), ...) float32 views
-    cols: _Axis
+    cols: Optional[_Axis]   # None where the bundle holds no column strip
     rows: _Axis             # on the transposed (4, nc, nr) view
     band: tuple             # ((slices, hd, 1 / (1 + hd)), ...) complex64 band pieces
 
@@ -148,13 +148,16 @@ def _phase_tables(b: WaveBundle):
     return ph, torch.complex(torch.cos(arg_avg), torch.sin(arg_avg))
 
 
-def _axis(d, nxt, prv, d0, gg, t: int, dense: bool) -> _Axis:
+def _axis(d, nxt, prv, d0, gg, t: int, dense: bool, J=None, S=None) -> _Axis:
     """The strip filters of the last axis; ``d``/``nxt``/``prv`` are the
-    axis's stencil, (4, L, n) dense or (4, n) separable."""
+    axis's stencil, (4, L, n) dense or (4, n) separable. ``J`` and ``S``
+    (the window's lines and the strips', in order) default to both ends of
+    the axis: the strips' t lines and one inner neighbour each."""
     n = d.shape[-1]
     dev = d.device
-    J = sorted(set(range(t + 1)) | set(range(n - t - 1, n)))
-    S = list(range(t)) + list(range(n - t, n))
+    if J is None:
+        J = sorted(set(range(t + 1)) | set(range(n - t - 1, n)))
+        S = list(range(t)) + list(range(n - t, n))
     where = {j: i for i, j in enumerate(J)}
 
     def idx(v):
@@ -169,11 +172,11 @@ def _axis(d, nxt, prv, d0, gg, t: int, dense: bool) -> _Axis:
                  gg=gg.to(torch.complex64))
 
 
-def _band(b: WaveBundle):
-    """The band sponge on the slices where hd = hd_r + hd_c is not zero: the
+def band_pieces(b: WaveBundle):
+    """``[(row slice, (first column, end column)), ...]``: the slices of the
+    (nr, nc) grid where the band sponge's hd = hd_r + hd_c is not zero: the
     rows a prefix and suffix of which carry hd_r, at full width, and the
-    columns that carry hd_c between them. One (slices, hd, 1/(1+hd)) a
-    piece."""
+    columns that carry hd_c between them."""
     nr, nc = b.inv_eps_dt2.shape[-2:]
 
     def ends(hd, n):
@@ -183,17 +186,27 @@ def _band(b: WaveBundle):
 
     r0, r1 = ends(b.hd_r, nr)
     c0, c1 = ends(b.hd_c, nc)
-    pieces = [(slice(0, r0), slice(None)), (slice(nr - r1, nr), slice(None)),
-              (slice(r0, nr - r1), slice(0, c0)), (slice(r0, nr - r1), slice(nc - c1, nc))]
+    return [(slice(0, r0), (0, nc)), (slice(nr - r1, nr), (0, nc)),
+            (slice(r0, nr - r1), (0, c0)), (slice(r0, nr - r1), (nc - c1, nc))]
+
+
+def _band(b: WaveBundle):
+    """The band sponge, one (slices, hd, 1/(1+hd)) a piece of
+    :func:`band_pieces`."""
     out = []
-    for rs, cs in pieces:
+    for rs, (c0, c1) in band_pieces(b):
+        cs = slice(c0, c1)
         hd = (b.hd_r[:, rs, None] + b.hd_c[:, None, cs]).to(torch.complex64)
         if hd.numel():
             out.append(((slice(None), rs, cs), hd, 1.0 / (1.0 + hd)))
     return tuple(out)
 
 
-def _make_plan(b: WaveBundle) -> _Plan:
+def _make_plan(b: WaveBundle, col_window=None, band=None) -> _Plan:
+    """The plan of ``b``. ``col_window``: ``(J, S)`` of the column filters
+    on ``b``'s columns (:func:`_axis`), ``()`` where ``b`` holds no column
+    strip; default both strips. ``band``: the band pieces, default
+    :func:`_band` of ``b``. (A block of a sharded bundle passes both.)"""
     ph, ph_avg = _phase_tables(b)
     if b.dense:
         dcr = b.dc + b.dr
@@ -207,10 +220,11 @@ def _make_plan(b: WaveBundle) -> _Plan:
         tr = lambda a: a  # noqa: E731
     return _Plan(
         ph=ph, ph_avg=ph_avg, dcr=dcr[..., None], couplings=cpl,
-        cols=_axis(b.dc, b.e_c, b.w_c, b.d0_col, b.gg_col, b.t, b.dense),
+        cols=None if col_window == () else _axis(b.dc, b.e_c, b.w_c, b.d0_col, b.gg_col, b.t,
+                                                 b.dense, *(col_window or (None, None))),
         rows=_axis(tr(b.dr), tr(b.s_r), tr(b.n_r), b.d0_row.transpose(-1, -2),
                    b.gg_row.transpose(-1, -2), b.t, b.dense),
-        band=_band(b))
+        band=_band(b) if band is None else band)
 
 
 def _shifted(a: torch.Tensor, axis: int, shift: int, lead: bool) -> torch.Tensor:
@@ -247,17 +261,19 @@ def _filter_axis(ax: _Axis, u, uprev, su, p_u, p_q, qp):
     su.index_add_(-1, ax.J, corr)
 
 
-def _psi0(b_sub: torch.Tensor, t: int):
+def _psi0(b_sub: torch.Tensor, t: int, col_strips: Optional[int] = None):
     """Zero filter state for :func:`_apply_S`: psi per filter (u-col,
     u-row, q-col, q-row) plus the lagged q strips (the u filters reuse
-    uprev from the leapfrog carry)."""
+    uprev from the leapfrog carry). ``col_strips``: the column strip lines
+    the state holds (default 2t, both strips)."""
     B, nr, nc = b_sub.shape
+    ncs = 2 * t if col_strips is None else col_strips
 
     def z(*shape):
         return torch.zeros(shape, dtype=b_sub.dtype, device=b_sub.device)
 
-    return (z(B, nr, 2 * t), z(B, 2 * t, nc), z(B, nr, 2 * t), z(B, 2 * t, nc),
-            z(B, nr, 2 * t), z(B, 2 * t, nc))
+    return (z(B, nr, ncs), z(B, 2 * t, nc), z(B, nr, ncs), z(B, 2 * t, nc),
+            z(B, nr, ncs), z(B, 2 * t, nc))
 
 
 def _apply_S(b: WaveBundle, u, uprev, psi, out: Optional[torch.Tensor] = None):
@@ -272,7 +288,8 @@ def _apply_S(b: WaveBundle, u, uprev, psi, out: Optional[torch.Tensor] = None):
         _shifted(sr, axis, shift, True).addcmul_(_shifted(ur, axis, shift, False),
                                                  _shifted(c, axis, shift, True))
     p_uc, p_ur, p_qc, p_qr, qcs, qrs = psi
-    _filter_axis(plan.cols, u, uprev, su, p_uc, p_qc, qcs)
+    if plan.cols is not None:
+        _filter_axis(plan.cols, u, uprev, su, p_uc, p_qc, qcs)
     tr = lambda a: a.transpose(-1, -2)  # noqa: E731
     _filter_axis(plan.rows, tr(u), tr(uprev), tr(su), tr(p_ur), tr(p_qr), tr(qrs))
     return su, psi

@@ -47,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from fdtd2d_tpu_torch.core.sources import source_amplitudes
-from fdtd2d_tpu_torch.fdtd.step import multistep, precompute_coefficients
+from fdtd2d_tpu_torch.fdtd.step import fdtd_step, multistep, precompute_coefficients
 # Modules, not names: the kernel modules import fdtd.step, whose package
 # imports this module, so their names are read at call time.
 from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
@@ -194,3 +194,46 @@ def simulate(eps, mu, config: FDTDConfig, state=None):
     if remainder > 0:
         fields = advance(fields, remainder, nframes * steps_per_frame)
     return finish(fields), snaps
+
+
+def simulate_batched(eps_batch, mu_batch, config: FDTDConfig, sources_xy=None):
+    """Batched FDTD rollouts over a batch of scenes (surrogate datagen and
+    parameter sweeps), on ``config.device`` in ``config.dtype``: the plain
+    step with a leading batch axis (the kernels take one scene), whatever
+    ``config.backend`` says, as the JAX package's ``vmap`` over its jnp step.
+
+    ``eps_batch``/``mu_batch``: (B, N, M); ``sources_xy``: optional (B, 2)
+    per-scene injection sites (default ``config.source_xy`` for every
+    scene), added after each step with one indexed add. Returns ``(Ez, Hx,
+    Hy)`` batched in the staggered shapes ((B, N, M), (B, N, M-1), (B, N-1,
+    M)) and the batched snapshots (B, nframes, N, M), or None; frames as in
+    :func:`simulate`."""
+    dtype, device = config.dtype, torch.device(config.device)
+    eps = torch.as_tensor(eps_batch, dtype=dtype, device=device)
+    mu = torch.as_tensor(mu_batch, dtype=dtype, device=device)
+    B, rows, cols = eps.shape
+    if sources_xy is None:
+        sources_xy = [config.source_xy] * B
+    sxy = torch.as_tensor(sources_xy, dtype=torch.int64, device=device).reshape(B, 2)
+    dt = torch.tensor(config.dt, dtype=dtype, device=device)
+    # each scene's coefficients, computed as simulate computes one scene's
+    ce, ch, coef = precompute_coefficients(eps, mu, config.dt, config.dx, dtype)
+    coef = coef[:, None, None]
+    Ez = torch.zeros((B, rows, cols), dtype=dtype, device=device)
+    Hx = torch.zeros((B, rows, cols - 1), dtype=dtype, device=device)
+    Hy = torch.zeros((B, rows - 1, cols), dtype=dtype, device=device)
+    amps = source_amplitudes(config.source_kind, 0, config.nsteps, dt, config.source_fc,
+                             dtype, device)
+    # one flat index a scene: Ez.view(-1)[b * N * M + x * M + y]
+    flat = torch.arange(B, device=device) * rows * cols + sxy[:, 0] * cols + sxy[:, 1]
+    per_frame = max(config.nsteps // max(config.nframes, 1), 1)
+    nframes = config.nsteps // per_frame if config.nframes > 0 else 0
+    snaps = (torch.empty((B, nframes, rows, cols), dtype=dtype, device=device)
+             if nframes else None)
+    ez_flat = Ez.view(-1)
+    for i in range(nframes * per_frame if nframes else config.nsteps):
+        fdtd_step(Ez, Hx, Hy, ce, ch, coef)
+        ez_flat.index_add_(0, flat, amps[i].expand(B))
+        if nframes and (i + 1) % per_frame == 0:
+            snaps[:, (i + 1) // per_frame - 1].copy_(Ez)
+    return (Ez, Hx, Hy), snaps

@@ -34,8 +34,8 @@ def precompute_coefficients(eps, mu, dt, dx, dtype=torch.float32):
     eps = torch.as_tensor(eps)
     mu = torch.as_tensor(mu)
     ce = (dt / (eps * dx)).to(dtype)
-    ch = (dt / (mu[:-1, :-1] * dx)).to(dtype)
-    coef = mur_coefficient(eps[0, 0], mu[0, 0], dt, dx).to(dtype)
+    ch = (dt / (mu[..., :-1, :-1] * dx)).to(dtype)
+    coef = mur_coefficient(eps[..., 0, 0], mu[..., 0, 0], dt, dx).to(dtype)
     return ce, ch, coef
 
 
@@ -48,8 +48,9 @@ def fdtd_step(Ez: torch.Tensor, Hx: torch.Tensor, Hy: torch.Tensor,
     (N-1,M-1)) or the padded one (all (N,M)): the slices below touch the same
     cells in both. Hx's last row and Hy's last column are never written, and
     the padded layout's phantom Hx column and Hy row are never read or written.
-    The fields may carry leading batch dimensions, which ``ce`` and ``ch``
-    broadcast over.
+    The fields may carry leading batch dimensions, which ``ce``, ``ch`` and
+    ``coef`` broadcast over (one set for every scene, or one a scene: ce and
+    ch (B, ...) and coef (B, 1, 1)).
     """
     b = MUR_BAND
     N, M = Ez.shape[-2:]
@@ -58,7 +59,7 @@ def fdtd_step(Ez: torch.Tensor, Hx: torch.Tensor, Hy: torch.Tensor,
 
     # -- H update (staggered curl of Ez) ------------------------------------
     e00 = Ez[..., : N - 1, : M - 1]
-    chv = ch[: N - 1, : M - 1]
+    chv = ch[..., : N - 1, : M - 1]
     Hx[..., : N - 1, : M - 1] -= chv * (Ez[..., 1:, : M - 1] - e00)
     Hy[..., : N - 1, : M - 1] += chv * (Ez[..., : N - 1, 1:] - e00)
 
@@ -66,7 +67,7 @@ def fdtd_step(Ez: torch.Tensor, Hx: torch.Tensor, Hy: torch.Tensor,
     curl_h = (Hy[..., 1 : N - 1, 1 : M - 1] - Hy[..., 1 : N - 1, : M - 2]) - (
         Hx[..., 1 : N - 1, 1 : M - 1] - Hx[..., : N - 2, 1 : M - 1]
     )
-    Ez[..., 1:-1, 1:-1] += curl_h * ce[1:-1, 1:-1]
+    Ez[..., 1:-1, 1:-1] += curl_h * ce[..., 1:-1, 1:-1]
 
     # -- Mur bands: left/right, then top/bottom ------------------------------
     Ez[..., 1:-1, :b] = pl[..., 1:-1, 1:] + coef * (Ez[..., 1:-1, 1 : b + 1] - pl[..., 1:-1, :b])

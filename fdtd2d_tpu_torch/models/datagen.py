@@ -284,11 +284,13 @@ def _finish_batch_host(dev, dx: float, pml_thickness: int) -> dict:
 
 
 def generate_batch(generator, *, batch: int, shape: Tuple[int, int], dx: float = 1e-3,
-                   pml_thickness: int = 40, device="cuda"):
+                   pml_thickness: int = 40, M=None, device="cuda", **_ignored):
     """One batch of (eps, mu, src, omega, Ez) training samples as host numpy,
     with ``residuals``, each label's true float64 relative residual. Labels
     are exact: the direct factorization plus one complex64 refinement round
-    (typically ~1e-6)."""
+    (typically ~1e-6). ``M`` and any other keyword (the Krylov path's
+    ``maxiter``, ...) are accepted and dropped, as the JAX package does."""
+    del M, _ignored
     dev = _generate_batch_compact_device(_gen(generator, device), batch=batch, shape=shape,
                                          dx=dx, pml_thickness=pml_thickness, device=device)
     return _finish_batch_host(dev, dx, pml_thickness)
@@ -321,10 +323,14 @@ def generate_batch_krylov(generator, *, batch: int, shape: Tuple[int, int],
 
 
 def generate_dataset(generator, num_samples: int, shape: Tuple[int, int], batch: int = 64,
-                     dx: float = 1e-3, pml_thickness: int = 40, device="cuda"):
+                     to_host: bool | None = None, dx: float = 1e-3, pml_thickness: int = 40,
+                     device="cuda", **kwargs):
     """``num_samples`` in batches of ``batch``; a stacked host-numpy dict.
     Batch i+1 is queued on the device before batch i's host copy and float64
-    check, so the host work overlaps the next solve."""
+    check, so the host work overlaps the next solve. ``to_host``, ``M`` and
+    any other keyword are accepted and dropped, as the JAX package does: the
+    result is always host numpy, and the direct path takes no preconditioner."""
+    del to_host, kwargs
     generator = _gen(generator, device)
     outs, pending, n = [], None, 0
     while n < num_samples:

@@ -198,11 +198,28 @@ def train_step(state: TrainState, schedule: DDPMSchedule, generator, batch: dict
     """One weighted denoising step; returns ``(state, loss)``, the loss a 0-d
     float32 tensor on the device (no host read). ``draws``: the step's
     random inputs (:func:`step_draws`), drawn from ``generator`` when None."""
-    Ez = batch["Ez"]
     if draws is None:
-        draws = step_draws(generator, schedule, Ez.shape, t_gamma=t_gamma,
+        draws = step_draws(generator, schedule, batch["Ez"].shape, t_gamma=t_gamma,
                            prediction_type=prediction_type, t_sampling=t_sampling,
                            augment=augment)
+    state.optimizer.zero_grad(set_to_none=True)
+    with conv_flags():
+        per_sample = per_sample_loss(state, schedule, batch, draws, snr_gamma=snr_gamma,
+                                     prediction_type=prediction_type, weighting=weighting,
+                                     augment=augment)
+        loss = torch.mean(per_sample).to(torch.float32)
+        loss.backward()
+    apply_update(state, ema_decay)
+    return state, loss.detach()
+
+
+def per_sample_loss(state: TrainState, schedule: DDPMSchedule, batch: dict, draws: StepDraws,
+                    *, snr_gamma: float = 5.0, prediction_type: str = "epsilon",
+                    weighting: str = "snr_gamma", augment: bool = False) -> torch.Tensor:
+    """The forward half of a train step: the batch (augmented by the draws'
+    D4 elements), noised, through the model in train mode; returns each
+    sample's weighted loss (B,), in the graph."""
+    Ez = batch["Ez"]
     if augment:
         batch = augment_batch(None, batch, g=draws.g)
         Ez = batch["Ez"]
@@ -214,17 +231,18 @@ def train_step(state: TrainState, schedule: DDPMSchedule, generator, batch: dict
         t = draws.t
         noisy = schedule.add_noise(Ez, draws.noise, t)
         target = Ez if prediction_type == "x0" else draws.noise
+    pred = state.model(batch["eps"], batch["mu"], batch["src"], noisy, t, batch["omega"],
+                       train=True)
+    per_sample = torch.mean((pred - target) ** 2, dim=(1, 2))
+    if prediction_type != "regression":
+        per_sample = loss_weight(schedule, t, weighting, prediction_type,
+                                 gamma=snr_gamma) * per_sample
+    return per_sample
 
-    state.optimizer.zero_grad(set_to_none=True)
-    with conv_flags():
-        pred = state.model(batch["eps"], batch["mu"], batch["src"], noisy, t, batch["omega"],
-                           train=True)
-        per_sample = torch.mean((pred - target) ** 2, dim=(1, 2))
-        if prediction_type != "regression":
-            per_sample = loss_weight(schedule, t, weighting, prediction_type,
-                                     gamma=snr_gamma) * per_sample
-        loss = torch.mean(per_sample).to(torch.float32)
-        loss.backward()
+
+def apply_update(state: TrainState, ema_decay: float = 0.0) -> None:
+    """The update half of a train step, from the gradients in place: AdamW,
+    the step count and the EMA."""
     state.optimizer.step()
     state.step += 1
     if ema_decay > 0 and state.ema_params is not None:
@@ -236,7 +254,6 @@ def train_step(state: TrainState, schedule: DDPMSchedule, generator, batch: dict
         params = [p.detach() for p in state.model.parameters()]
         torch._foreach_mul_(ema, float(eff))
         torch._foreach_add_(ema, params, alpha=float(np.float32(1) - eff))
-    return state, loss.detach()
 
 
 def _decode_batch(data: dict, idx, affine: dict, const: dict) -> dict:

@@ -23,13 +23,20 @@ port follows Flax:
 
 ``dtype=torch.bfloat16`` runs the conv and dense math under autocast in
 bf16; the parameters, the BatchNorm statistics and normalization, the 1x1
-head and the output stay float32 (the JAX module's mixed precision).
+head and the output stay float32 (the JAX module's mixed precision). A
+module converted to float64 (``.double()``) computes in float64 throughout.
+
+Under a ``torch.distributed`` group (:func:`synchronized_batchnorm`, the
+data-parallel train step of parallel/train_dp.py) BatchNorm takes its
+statistics over the whole batch of every rank, as the JAX package's GSPMD
+step does over a batch split across devices.
 :func:`unet_params_from_flax` carries Flax weights across.
 """
 
 from __future__ import annotations
 
 import math
+import contextlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -71,6 +78,7 @@ class BatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.group = None   # a torch.distributed group: statistics over all its ranks
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -80,13 +88,77 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
-        y, mean, rstd = torch.ops.aten._native_batch_norm_legit.no_stats(
-            x, self.weight, self.bias, True, 0.0, self.eps)
+        sync = self.group is not None
+        if sync:
+            y, mean, stat = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps, self.group)
+        else:
+            y, mean, stat = torch.ops.aten._native_batch_norm_legit.no_stats(
+                x, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
+            var = stat if sync else stat.pow(-2) - self.eps   # the biased variance
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(rstd.pow(-2) - self.eps,
-                                                      alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
         return y
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the batch of every rank of ``group``.
+    Forward: one ``all_reduce`` of each channel's sum, sum of squares and
+    count, the biased variance E[x^2] - E[x]^2 and the normalization.
+    Backward: one ``all_reduce`` of each channel's sums of dy and of
+    dy * x_hat; the weight and bias gradients stay this rank's own sums (the
+    train step's gradient ``all_reduce`` adds them up). Statistics in
+    float32 at least, whatever the input's dtype; returns (y, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        import torch.distributed as dist
+
+        xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        C = x.shape[1]
+        dims = [0, 2, 3]
+        count = torch.full((1,), x.numel() // C, dtype=xf.dtype, device=x.device)
+        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
+        dist.all_reduce(stats, group=group)
+        n = stats[-1]
+        mean = stats[:C] / n
+        var = stats[C : 2 * C] / n - mean * mean
+        rstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean[:, None, None]) * rstd[:, None, None]
+        y = xhat * weight[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(xhat, rstd, weight, n)
+        ctx.group, ctx.in_dtype = group, x.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        import torch.distributed as dist
+
+        xhat, rstd, weight, n = ctx.saved_tensors
+        dyf = dy.to(xhat.dtype)
+        dims = [0, 2, 3]
+        sum_dy, sum_dy_xhat = dyf.sum(dims), (dyf * xhat).sum(dims)
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums, group=ctx.group)
+        C = sum_dy.shape[0]
+        g_dy, g_dy_xhat = (sums[:C] / n)[:, None, None], (sums[C:] / n)[:, None, None]
+        dx = (weight * rstd)[:, None, None] * (dyf - g_dy - xhat * g_dy_xhat)
+        return dx.to(ctx.in_dtype), sum_dy_xhat, sum_dy, None, None
+
+
+@contextlib.contextmanager
+def synchronized_batchnorm(model: nn.Module, group):
+    """Within the block, every :class:`BatchNorm` of ``model`` takes its
+    training statistics over all ranks of the ``torch.distributed`` group."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.group = group
+    try:
+        yield model
+    finally:
+        for m in norms:
+            m.group = None
 
 
 class ConvBlock(nn.Module):
@@ -150,13 +222,15 @@ class UNet2D(nn.Module):
 
     def forward(self, eps, mu, src, noisy, t, omega, *, train: bool = False):
         """Field inputs (B, H, W), t and omega (B,); returns (B, H, W) in
-        float32 whatever the compute dtype. ``train`` selects the BatchNorm
-        mode (batch statistics, running statistics updated) as the Flax
-        module's argument does, whatever ``self.training`` says."""
+        float32 whatever the compute dtype (float64 for a ``.double()``
+        module). ``train`` selects the BatchNorm mode (batch statistics,
+        running statistics updated) as the Flax module's argument does,
+        whatever ``self.training`` says."""
         self.train(train)
-        x = torch.stack([eps, mu, src, noisy], dim=1).float()
+        real = self.head.weight.dtype   # float32, or float64 for a .double() module
+        x = torch.stack([eps, mu, src, noisy], dim=1).to(real)
         x = x.contiguous(memory_format=torch.channels_last)
-        omega = omega.float()
+        omega = omega.to(real)
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             e1 = self.blocks[0](x)
@@ -167,7 +241,7 @@ class UNet2D(nn.Module):
             p3 = F.max_pool2d(e3, 2) + self.omegas[2](omega)[:, :, None, None]
 
             b = self.blocks[3](p3)
-            temb = sinusoidal_embedding(t, self.time_embed_dim)
+            temb = sinusoidal_embedding(t, self.time_embed_dim).to(real)
             temb = self.time[1](F.relu(self.time[0](temb)))
             b = b + temb[:, :, None, None]
 
@@ -183,7 +257,7 @@ class UNet2D(nn.Module):
             d1 = self.blocks[6](up_cat(d2, e1))
         # the head stays float32: the regression target spans orders of magnitude
         with torch.autocast(x.device.type, enabled=False):
-            return self.head(d1.float())[:, 0]
+            return self.head(d1.to(real))[:, 0]
 
 
 def unet_params_from_flax(params: dict, batch_stats: Optional[dict] = None) -> dict:

@@ -46,19 +46,11 @@ from fdtd2d_tpu_torch.core.sources import source_amplitudes
 from fdtd2d_tpu_torch.fdtd.step import precompute_coefficients
 from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
 from fdtd2d_tpu_torch.ops.fdtd_ttiled import Block, S
-from fdtd2d_tpu_torch.parallel.mesh import Mesh
+from fdtd2d_tpu_torch.parallel.mesh import Mesh, block_bounds
 
 # Strip copies made by the halo exchanges of the last rollout; a run shows
 # what an exchange costs by reading it beside the kernel's launch counter.
 exchange_copies = 0
-
-
-def block_bounds(n: int, D: int) -> List[Tuple[int, int]]:
-    """``[(lo, hi), ...]``: ``n`` cells cut into ``D`` runs as even as they
-    come, the first ``n % D`` one cell longer."""
-    base, extra = divmod(n, D)
-    edges = [b * base + min(b, extra) for b in range(D + 1)]
-    return list(zip(edges[:-1], edges[1:]))
 
 
 def mesh_blocks(N: int, M: int, Dr: int, Dc: int, G: int) -> List[List[Block]]:

@@ -8,10 +8,14 @@ Counterpart of ``fdtd2d_tpu/utils/metrics.py``:
   warm-up. A device rate is never taken on the host: without CUDA it raises.
 - :func:`device_info` — the card's name and power limit from nvidia-smi, to
   be written beside every number measured on it.
+- :func:`trace_profile` — a ``torch.profiler`` trace of the enclosed block,
+  written as a Chrome trace (the JAX module's ``jax.profiler`` trace).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import subprocess
 import time
 from typing import Callable
@@ -73,3 +77,19 @@ def device_info() -> dict:
         capture_output=True, text=True, check=True).stdout.strip()
     name, limit = (part.strip() for part in out.splitlines()[0].rsplit(",", 1))
     return {"name": name, "power_limit": limit, "nvidia_smi": out}
+
+
+@contextlib.contextmanager
+def trace_profile(log_dir: str):
+    """Trace the enclosed block with ``torch.profiler`` (the CPU, and the
+    card's kernels where CUDA is available) and write it as a Chrome trace,
+    ``trace.json`` under ``log_dir`` (made if missing). Yields ``log_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

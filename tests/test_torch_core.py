@@ -95,3 +95,54 @@ def test_source_amplitudes_index_global_steps():
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="source kind"):
         sources.source_amplitudes("gaussian", 0, 4, DT, FC)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_region_drawer_matches_jax(seed, tmp_path):
+    """The port's copy of RegionDrawer draws the JAX package's masks bit for
+    bit: every primitive at seeded positions and sizes, the permittivity
+    exports and the PNG."""
+    from fdtd2d_tpu.core.geometry import RegionDrawer as JaxDrawer
+    from fdtd2d_tpu_torch.core import RegionDrawer
+
+    rng = np.random.default_rng(seed)
+    W, H = (int(v) for v in rng.integers(40, 90, 2))
+
+    def pt():
+        return (float(rng.uniform(0, W)), float(rng.uniform(0, H)))
+
+    calls = [("draw_waveguide", (pt(), pt(), int(rng.integers(1, 6)))),
+             ("draw_ring_resonator", (pt(), int(rng.integers(4, 15)), int(rng.integers(1, 4)))),
+             ("draw_sphere", (pt(), int(rng.integers(2, 9)), int(rng.integers(0, 3)))),
+             ("draw_curved_waveguide", (pt(), pt(), pt(), int(rng.integers(1, 5)))),
+             ("draw_directional_coupler", (pt(), int(rng.integers(10, 30)),
+                                           int(rng.integers(1, 6)), int(rng.integers(1, 4)))),
+             ("draw_box", ((int(rng.integers(5, 20)), int(rng.integers(5, 20))),
+                           int(rng.integers(8, 20)), int(rng.integers(1, 4)))),
+             ("draw_waveguide", ((10.0, 10.0), (10.0, 10.0), 3))]   # a zero-length segment
+    ours, theirs = RegionDrawer(W, H), JaxDrawer(W, H)
+    for name, args in calls:
+        getattr(ours, name)(*args)
+        getattr(theirs, name)(*args)
+        np.testing.assert_array_equal(ours.canvas, theirs.canvas, err_msg=name)
+    assert 0 < ours.canvas.sum() < W * H
+    np.testing.assert_array_equal(ours.to_eps(4.0), theirs.to_eps(4.0))
+    ours.save(str(tmp_path / "a.png"))
+    theirs.save(str(tmp_path / "b.png"))
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")),
+                                  np.asarray(Image.open(tmp_path / "b.png")))
+
+
+def test_trace_profile_writes_a_chrome_trace(tmp_path):
+    """trace_profile writes a Chrome trace under its directory that names an
+    op run inside the block."""
+    import json
+
+    from fdtd2d_tpu_torch.utils import trace_profile
+
+    log_dir = tmp_path / "trace"
+    with trace_profile(str(log_dir)) as where:
+        torch.linalg.qr(torch.ones((8, 8), dtype=torch.float64) + torch.eye(8))
+    assert where == str(log_dir)
+    events = json.loads((log_dir / "trace.json").read_text())["traceEvents"]
+    assert any("linalg_qr" in str(e.get("name", "")) for e in events)

@@ -158,6 +158,25 @@ def test_generate_dataset_batches_and_queue():
     assert set(times) == {"draw", "factor", "solve", "refine"}
 
 
+def test_generate_dataset_takes_the_jax_keywords():
+    """The call of the JAX package's own test (tests/test_models.py:105-106):
+    ``maxiter``, ``M`` and ``to_host`` are accepted and dropped, by
+    generate_dataset and generate_batch alike, and leave the data as it is
+    without them."""
+    shape = (48, 48)
+    M = tdg.default_preconditioner(shape, pml_thickness=8, device="cpu")
+    data = tdg.generate_dataset(5, 6, shape, batch=4, pml_thickness=8, maxiter=100, M=M,
+                                to_host=True, device="cpu")
+    assert isinstance(data["Ez"], np.ndarray) and data["Ez"].shape == (6,) + shape
+    assert np.all(np.isfinite(data["Ez"]))
+    plain = tdg.generate_dataset(5, 6, shape, batch=4, pml_thickness=8, device="cpu")
+    for k in plain:
+        np.testing.assert_array_equal(data[k], plain[k], err_msg=k)
+    one = tdg.generate_batch(torch.Generator().manual_seed(5), batch=4, shape=shape,
+                             pml_thickness=8, M=M, maxiter=100, device="cpu")
+    np.testing.assert_array_equal(one["Ez"], plain["Ez"][:4])
+
+
 def test_generate_batch_krylov_runs():
     """The Krylov-labelled batch (kept for comparison): the scene-batched
     operator under one batched FGMRES with the shared FDM preconditioner."""

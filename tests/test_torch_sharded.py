@@ -485,15 +485,24 @@ def test_simulate_sharded_ttiled_raises_on_an_inadmissible_grid():
 
 
 def test_parallel_package_imports_no_jax():
+    """Every module of the port (the parallel package and all the others,
+    found by walking the package) imports neither JAX nor the JAX package."""
     import os
     import subprocess
     import sys
 
-    code = ("import sys, fdtd2d_tpu_torch.parallel, fdtd2d_tpu_torch.parallel.mesh, "
-            "fdtd2d_tpu_torch.parallel.fdtd_sharded, fdtd2d_tpu_torch.parallel.sharded\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'fdtd2d_tpu'))\n"
-            "assert not bad, bad")
+    code = ("import sys, pkgutil, importlib, fdtd2d_tpu_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages(fdtd2d_tpu_torch.__path__, "
+            "'fdtd2d_tpu_torch.')]\n"
+            "assert 'fdtd2d_tpu_torch.parallel.dryrun' in mods, mods\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'fdtd2d_tpu', 'optax', 'flax'))\n"
+            "assert not bad, bad\n"
+            "print(len(mods))")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 50

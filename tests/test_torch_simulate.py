@@ -1,6 +1,7 @@
 """The slice end to end: the port's rollout against the JAX package's
 (the Pallas kernel in interpret mode, the pure-JAX step) and the NumPy oracle."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -216,3 +217,58 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _batched_scenes():
+    """The scenes of tests/test_fdtd_oracle.py:121-137: two 48^2 scenes, the
+    second with a 3x block, sources at (24, 24) and (20, 28)."""
+    eps1 = np.full((48, 48), constants.EPSILON_0)
+    eps2 = eps1.copy()
+    eps2[10:20, 10:20] *= 3.0
+    mu = np.full((48, 48), constants.MU_0)
+    return np.stack([eps1, eps2]), np.stack([mu, mu]), [(24, 24), (20, 28)]
+
+
+@pytest.mark.parametrize("dtype,jdtype,bound", [(torch.float64, jnp.float64, 1e-12),
+                                                (torch.float32, jnp.float32, 1e-5)])
+@pytest.mark.parametrize("nframes", [0, 7])
+def test_simulate_batched_matches_jax(dtype, jdtype, bound, nframes):
+    """simulate_batched against JAX's on the inputs of the oracle test (60
+    steps; with 7 frames of 8 steps, no remainder, as JAX's scan): Ez, Hx,
+    Hy and the frames within 1e-12 in float64 and 1e-5 in float32."""
+    from fdtd2d_tpu.fdtd.simulate import simulate_batched as jax_simulate_batched
+    from fdtd2d_tpu_torch.fdtd import simulate_batched
+
+    eps, mu, sources = _batched_scenes()
+    kw = dict(dt=DT, dx=DX, nsteps=60, source_xy=(24, 24), source_fc=FC, nframes=nframes)
+    (*want, ), wsnaps = jax_simulate_batched(eps, mu, JaxConfig(**kw, dtype=jdtype),
+                                             sources_xy=sources)
+    (*got, ), snaps = simulate_batched(eps, mu, FDTDConfig(**kw, dtype=dtype, device="cpu"),
+                                       sources_xy=sources)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and tuple(g.shape) == np.shape(w)
+        assert _rel(g, w) < bound
+    if nframes:
+        assert tuple(snaps.shape) == (2, nframes, 48, 48) and _rel(snaps, wsnaps) < bound
+        assert torch.equal(snaps[:, -1], got[0])
+    else:
+        assert snaps is None and wsnaps is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_simulate_batched_equals_per_scene_simulate(dtype):
+    """The batched run is each scene's simulate(backend='torch') with its
+    own source, bit for bit (63 steps in 7 frames; the default source_xy
+    when sources_xy is None)."""
+    from fdtd2d_tpu_torch.fdtd import simulate_batched
+
+    eps, mu, sources = _batched_scenes()
+    cfg = FDTDConfig(dt=DT, dx=DX, nsteps=63, source_xy=(24, 24), source_fc=FC, nframes=7,
+                     dtype=dtype, device="cpu", backend="torch")
+    for srcs in (sources, None):
+        (Ez, Hx, Hy), snaps = simulate_batched(eps, mu, cfg, sources_xy=srcs)
+        for k in range(2):
+            sxy = cfg.source_xy if srcs is None else srcs[k]
+            (e, hx, hy), s = simulate(eps[k], mu[k], dataclasses.replace(cfg, source_xy=sxy))
+            for a, b in ((e, Ez[k]), (hx, Hx[k]), (hy, Hy[k]), (s, snaps[k])):
+                assert torch.equal(a, b)
