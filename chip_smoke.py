@@ -261,6 +261,15 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
     raw backsolve <= 1e-6 (stored, checkpointed; whether bit for bit); the
     compressed raw backsolve reported, within 1e-2 of the stored one, and
     its solve refined to 1e-10 <= 1e-6 from the single-device one.
+37. (Runs after phase 30, before 31-36, whose gates then leave it its
+    time.) The port's bench through its CLI, ``python -m
+    fdtd2d_tpu_torch.cli bench --only fdfd512,fdfd512iter,fdtd2048``: a
+    child process a row, each row checked before it prints (fdtd2048 holds
+    K2 at 2048^2 to the float64 plain step over 200 steps from zero and 20
+    steps once the pulse has reached every Mur band and corner); rc 0,
+    three JSON lines, fdtd2048 last on K2 (``"backend": "ttiled"``), the
+    card's name on each; fdfd512iter's iterations equal to phase 14's (the
+    same solve), its seconds printed beside phase 14's.
 31. The sharded FDFD solve (parallel/sharded.py) on meshes of cuda:0: the
     block matvec on (4,) and (2, 2) meshes at 512^2 (the fdfd512 scene)
     against ``op.apply``, <= 1e-13 in complex128 (complex64 printed); then
@@ -329,8 +338,8 @@ convolutions are cuDNN's, and the ``kernels`` line is unchanged), one
 phases 28-30 (no TPU kernel lies on this path either), one
 (``multidevice``) with the parity, times, iterations, launches, gathers,
 rounds and peak memory of phases 31-36 (no ``pl.pallas_call`` lies on them;
-K2's block mode runs in the dry run's stages 1, 4b and 4b'), and the
-nvidia-smi line; its last line is
+K2's block mode runs in the dry run's stages 1, 4b and 4b'), one
+(``bench``) with phase 37's three rows, and the nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1447,14 +1456,47 @@ def sharded_direct_phase(dev) -> dict:
     return out
 
 
+def bench_phase() -> dict:
+    """Phase 37: the port's bench through its CLI, three rows in child
+    processes. Returns the numbers of the ``{"bench": ...}`` line."""
+    rows_asked = "fdfd512,fdfd512iter,fdtd2048"
+    t0 = phase(f"37. CLI: fdtd2d_tpu_torch.cli bench --only {rows_asked} (a child "
+               "process a row)")
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "fdtd2d_tpu_torch.cli", "bench", "--only", rows_asked]
+    t_start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t_start
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    if [row.get("metric") for row in rows] != ["fdfd_512sq_solve", "fdfd_512sq_iterative_solve",
+                                               "fdtd_yee_updates_2048x2048"]:
+        raise AssertionError(f"bench printed {proc.stdout!r}")
+    if rows[-1]["backend"] != "ttiled" or not all(row.get("card") for row in rows):
+        raise AssertionError(f"bench's rows: {rows}")
+    # phase 14 ran the same FDM-FGMRES solve in this process
+    _, phase14_s, phase14_its = KEPT["fdfd512iter"]
+    if rows[1]["iterations"] != phase14_its:
+        raise AssertionError(f"fdfd512iter: the bench's {rows[1]['iterations']} iterations, "
+                             f"phase 14's {phase14_its}")
+    for row in rows:
+        print("   " + json.dumps(row))
+    done(t0, f"{seconds:.1f} s for three rows, three child processes; fdfd512iter "
+             f"{rows[1]['value']} s and {rows[1]['iterations']} iterations (phase 14: "
+             f"{phase14_s:.3f} s, {phase14_its})")
+    return {"rows": rows, "seconds": seconds,
+            "phase14_fdfd512iter": {"seconds": phase14_s, "iterations": phase14_its}}
+
+
 # -- phases 31-36: the multi-device legs, every mesh entry on the one card ------------------
 
 # The script's end that phases 31-36 plan for: a gated part runs in full where
 # the time so far, its estimate and what the later phases take (``reserve_s``)
 # stay under it, else it is cut and the cut printed (direct2048stored, after
 # them, has its own gate at 1080 s). On an H100 at 700 W phases 1-30 take
-# about 680 s and 31-36 about 200 s at their least: 900 keeps the script near
-# 930 s of its 1200 s limit.
+# about 680 s, phase 37 (run before 31) some 50 s more, and 31-36 about 200 s
+# at their least: 900 keeps the script near 930 s of its 1200 s limit.
 MULTIDEVICE_END_S = 900.0
 # refinement rounds of the time-domain solve to 1e-6 (10-11 at 256^2-2048^2 on
 # an H100)
@@ -2432,6 +2474,7 @@ def main() -> int:
     direct_modes["hps"] = hps_phase(dev)
     direct_modes["sharded_512"] = sharded_direct_phase(dev)
     direct_modes["phases_28_30_s"] = time.perf_counter() - t_direct
+    bench_rows = bench_phase()
     multidevice = multidevice_phases(dev, profile_fdfd, t_script)
     direct_modes["direct2048stored"] = stored2048_phase(dev, scene2048, stored_estimate_s,
                                                         t_script)
@@ -2523,6 +2566,8 @@ def main() -> int:
                                        **direct_modes}}))
     print(json.dumps({"multidevice": {"card": info["name"], "power_limit": info["power_limit"],
                                       "cards_visible": torch.cuda.device_count(), **multidevice}}))
+    print(json.dumps({"bench": {"card": info["name"], "power_limit": info["power_limit"],
+                                **bench_rows}}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,7 +14,9 @@ reference the port is tested against:
 - ``ops``   — hand-written CUDA kernels (built with nvcc at first use) and
               their plain PyTorch versions; the FDFD operator, preconditioners,
               Krylov solver and sparse-CSR layer as torch ops.
-- ``utils`` — timers and the GCells/s counter, timed with CUDA events.
+- ``utils`` — timers and the GCells/s counter, timed with CUDA events; the
+              train step's FLOP count.
+- ``bench`` — the benchmark suite: bench.py's fourteen rows, headline last.
 - ``viz``   — snapshot rendering, video export and diagnostic plots.
 
 The package imports ``torch`` and numpy and never ``jax``.

@@ -1,5 +1,5 @@
 """Command-line entry point of the port (the ``fdtd``, ``fdfd``, ``tiled``,
-``invdes``, ``datagen``, ``train`` and ``infer`` subcommands so far):
+``invdes``, ``datagen``, ``train``, ``infer`` and ``bench`` subcommands):
 
     python -m fdtd2d_tpu_torch.cli fdtd --size 2048 --steps 2000 --device cuda
     fdtd2d-torch fdtd --size 200 --steps 1000 [--structure img.png] [--video out.mp4]
@@ -9,6 +9,7 @@
     fdtd2d-torch datagen --size 250 --samples 1000 --batch 64 --out data.npz [--compact]
     fdtd2d-torch train --data data.npz --epochs 100 --batch 8 --ckpt-dir ckpt
     fdtd2d-torch infer --ckpt-dir ckpt --data data.npz --steps 50 [--out inference.png]
+    fdtd2d-torch bench [--only fdfd512,fdtd2048] [--device cuda|cpu]
 
 Flags and printed lines are those of the JAX CLI's commands of the same
 names (fdtd2d_tpu/cli.py), plus ``--device`` (default cuda), and without
@@ -286,6 +287,13 @@ def cmd_infer(args):
         print(f"wrote {args.out}")
 
 
+def cmd_bench(args):
+    from fdtd2d_tpu_torch import bench
+
+    argv = ["--device", args.device] + (["--only", args.only] if args.only else [])
+    return bench.main(argv)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fdtd2d-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -449,13 +457,19 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--device", type=str, default="cuda",
                    help="torch device, e.g. cuda, cuda:1 or cpu")
     f.set_defaults(fn=cmd_infer)
+
+    f = sub.add_parser("bench", help="benchmark suite (one JSON line a row, headline last)")
+    f.add_argument("--only", type=str, default=None,
+                   help="comma-separated bench names (default: all fourteen)")
+    f.add_argument("--device", type=str, default="cuda",
+                   help="cuda (bench.py's full sizes) or cpu (its off-TPU sizes)")
+    f.set_defaults(fn=cmd_bench)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    args.fn(args)
-    return 0
+    return args.fn(args) or 0
 
 
 if __name__ == "__main__":

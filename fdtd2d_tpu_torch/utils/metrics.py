@@ -10,6 +10,9 @@ Counterpart of ``fdtd2d_tpu/utils/metrics.py``:
   be written beside every number measured on it.
 - :func:`trace_profile` — a ``torch.profiler`` trace of the enclosed block,
   written as a Chrome trace (the JAX module's ``jax.profiler`` trace).
+- :func:`step_flops` — the FLOPs of one surrogate train step, counted by
+  ``torch.utils.flop_counter.FlopCounterMode`` (the JAX bench reads XLA's
+  cost model instead).
 """
 
 from __future__ import annotations
@@ -93,3 +96,23 @@ def trace_profile(log_dir: str):
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def step_flops(batch: dict) -> int:
+    """FLOPs of one train step (forward and backward) of the full-width
+    ``UNet2D()`` on ``batch`` (``eps``, ``mu``, ``src``, ``Ez`` of (B, H, W)
+    and ``omega`` of (B,)), counted by FlopCounterMode on a fresh state on
+    the batch's device. The count depends on the shapes only, not on the
+    values or the compute dtype."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from fdtd2d_tpu_torch.models import train as tt
+    from fdtd2d_tpu_torch.models.diffusion import DDPMSchedule
+
+    device = batch["eps"].device
+    st = tt.create_state(0, tuple(batch["eps"].shape[1:]), tt.TrainConfig(), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    sched = DDPMSchedule.create(1000, device=device)
+    with FlopCounterMode(display=False) as counter:
+        tt.train_step(st, sched, gen, batch)
+    return int(counter.get_total_flops())

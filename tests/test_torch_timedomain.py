@@ -191,3 +191,24 @@ def test_odd_grid_is_refused():
     eps, mu, _ = _scene(63)
     with pytest.raises(ValueError, match="even grid"):
         td.build_wave_bundle(eps, mu, DX, DX, 30e9, device="cpu")
+
+
+@pytest.mark.parametrize("N, omega, transits", [
+    (192, 30e9, 4.0),   # bench.py's timedomain4096 off the TPU (4 rounds)
+    (128, 17e9, 2.5),   # bench.py's frequency and transits on the TPU (9 rounds)
+])
+def test_refinement_trace_matches_jax(N, omega, transits):
+    """Both packages' ``TimeDomainSolver.solve(refine_target=1e-6)`` on the
+    same scene (bench.py's 1.5x block): the same number of rounds, and each
+    round's contraction within 10% of JAX's."""
+    eps, mu, src = _scene(N)
+    src = src.real
+    kw = dict(transits=transits)
+    _, want = jtd.TimeDomainSolver(eps, mu, DX, DX, omega, **kw).solve(src,
+                                                                      refine_target=1e-6)
+    _, got = td.TimeDomainSolver(eps, mu, DX, DX, omega, device="cpu", **kw).solve(
+        src, refine_target=1e-6)
+    want, got = np.asarray(want[:-1], np.float64), np.asarray(got[:-1], np.float64)
+    assert len(got) == len(want) >= 4, (got, want)
+    contraction, want_contraction = got[1:] / got[:-1], want[1:] / want[:-1]
+    assert np.all(np.abs(contraction / want_contraction - 1) <= 0.1), (got, want)

@@ -20,10 +20,11 @@ line each, then the card's name and power limit as nvidia-smi gives them.
   full-width ``UNet2D()`` at 256^2, batch 8 (bench.py's trainstep cell), in
   float32 (TF32 convolutions) and bf16: ms a step by CUDA events over
   STEPS steps after WARMUP, in turns f32, bf16, bf16, f32; the step's FLOPs
-  by ``torch.utils.flop_counter.FlopCounterMode``; the share of the peak
-  of its mode (bf16 989 TFLOP/s, TF32 495); peak memory; a torch.profiler
-  window (busy share, top device kernels); and one ``train_epoch`` of 64
-  steps on device-resident data.
+  by ``torch.utils.flop_counter.FlopCounterMode`` (the package's
+  ``utils/metrics.step_flops``); the share of the peak of its mode (bf16
+  989 TFLOP/s, TF32 495); peak memory; a torch.profiler window (busy
+  share, top device kernels); and one ``train_epoch`` of 64 steps on
+  device-resident data.
 - ``infer`` (phase 26): 50-step chains at 256^2, batch 8, deterministic and
   stochastic (ms a chain), ``regress`` and a two-member
   ``ensemble_inference``: finite and in physical units.
@@ -230,24 +231,6 @@ def train_parity(dev, H: int = 32) -> dict:
     return out
 
 
-def step_flops(dev) -> int:
-    """FLOPs of one full-width train step (forward, backward) at
-    TRAIN_SHAPE, counted by FlopCounterMode on a separate state (the count
-    is the same in either compute dtype)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from fdtd2d_tpu_torch.models import train as tt
-    from fdtd2d_tpu_torch.models.diffusion import DDPMSchedule
-
-    st = tt.create_state(0, TRAIN_SHAPE[1:], tt.TrainConfig(), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    batch = _train_batch(TRAIN_SHAPE, gen, dev)
-    sched = DDPMSchedule.create(1000, device=dev)
-    with FlopCounterMode(display=False) as counter:
-        tt.train_step(st, sched, gen, batch)
-    return int(counter.get_total_flops())
-
-
 def _steps(st, sched, gen, batch, n, tt):
     for _ in range(n):
         tt.train_step(st, sched, gen, batch)
@@ -258,6 +241,7 @@ def train_cell(dev, trace: Path) -> dict:
     the peak, peak memory, a profiler window and one 64-step epoch."""
     from fdtd2d_tpu_torch.models import train as tt
     from fdtd2d_tpu_torch.models.diffusion import DDPMSchedule
+    from fdtd2d_tpu_torch.utils.metrics import step_flops
     from profile_fdfd import ACTIVITIES, window_summary
 
     sched = DDPMSchedule.create(1000, device=dev)
@@ -278,7 +262,9 @@ def train_cell(dev, trace: Path) -> dict:
         end.synchronize()
         ms[dtype].append(start.elapsed_time(end) / STEPS)
         peaks[dtype] = max(peaks[dtype], _peak_gb(dev))
-    flops = step_flops(dev)
+    # the count depends on the shapes only
+    flops = step_flops(_train_batch(TRAIN_SHAPE, torch.Generator(device=dev).manual_seed(0),
+                                    dev))
     out = {"shape": list(TRAIN_SHAPE), "steps_timed": STEPS, "warmup": WARMUP,
            "order": ["float32", "bfloat16", "bfloat16", "float32"], "ms_per_step": ms,
            "flops_per_step": flops, "flops_per_step_estimate_issue": 2.04e12,
