@@ -234,6 +234,11 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
 27. The CLI on cuda, a process each: ``datagen --size 64 --samples 32
     --batch 16 --pml 8`` (residual < 1e-4; phase 24 holds 1e-5), ``train --epochs 2 --batch 8
     --ckpt-dir ...``, ``infer --steps 10 --out ""``.
+38. (Runs after phase 27.) The surrogate's readout on cuda, a process
+    each, on phase 27's dataset and checkpoint (64^2, epsilon): ``python -m
+    fdtd2d_tpu_torch.apps.surrogate_report`` on the last 8 scenes (rc 0,
+    the npz keys of an epsilon report, every value finite) and ``python -m
+    fdtd2d_tpu_torch.apps.surrogate_diagnose`` (rc 0, finite per-t probes).
 28. The compressed (HODLR) direct mode (fdfd/compressed.py): at 160^2
     (tests/test_direct.py's scene, 24 GHz, PML 20, rank 10, leaf 16) on
     the card and on the CPU, the raw backsolve within 1e-2 (q = 0) and
@@ -332,7 +337,7 @@ one with the times, residuals and peak memory of phases 10-15, one
 of phases 19-20, one (``tiled_timedomain``) with the parity, probe, times,
 iterations, rounds, launches and peak memory of phases 21-23, one
 (``surrogate``) with the parity, rates, times, FLOPs, profile and peak
-memory of phases 24-27 (no TPU kernel lies on the surrogate's path: its
+memory of phases 24-27 and the readout of phase 38 (no TPU kernel lies on the surrogate's path: its
 convolutions are cuDNN's, and the ``kernels`` line is unchanged), one
 (``direct_modes``) with the parity, times, stores, rounds and peak memory of
 phases 28-30 (no TPU kernel lies on this path either), one
@@ -1140,6 +1145,11 @@ def surrogate_phases(dev, bench_surrogate) -> dict:
     t0 = phase("27. CLI: datagen, train, infer on cuda, a process each")
     out["cli"] = bench_surrogate.cli_cell(ROOT / "build" / "surrogate_cli")
     done(t0, ", ".join(f"{k} {v['process_s']:.1f} s" for k, v in out["cli"].items()))
+    t0 = phase("38. the surrogate's readout on cuda, a process each: apps.surrogate_report "
+               "(holdout 8, epsilon) and apps.surrogate_diagnose on phase 27's run")
+    out["readout"] = bench_surrogate.readout_cell(ROOT / "build" / "surrogate_cli")
+    done(t0, ", ".join(f"{k} {v['process_s']:.1f} s" for k, v in out["readout"].items())
+         + f"; ensemble corr mean {out['readout']['report']['corr_mean']['corr_e']:.4f}")
     return out
 
 
@@ -2468,7 +2478,7 @@ def main() -> int:
                "cli": schwarz_cli_phase()}
     t_surrogate = time.perf_counter()
     surrogate = surrogate_phases(dev, tool("bench_surrogate"))
-    surrogate["phases_24_27_s"] = time.perf_counter() - t_surrogate
+    surrogate["phases_24_27_38_s"] = time.perf_counter() - t_surrogate
     t_direct = time.perf_counter()
     direct_modes, stored_estimate_s, scene2048 = compressed_phase(dev)
     direct_modes["hps"] = hps_phase(dev)

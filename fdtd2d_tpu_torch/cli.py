@@ -171,6 +171,13 @@ def cmd_datagen(args):
     print(f"wrote {args.out}")
 
 
+def _can_draw() -> bool:
+    """Whether matplotlib, which draws the eval panels, is installed."""
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
 def cmd_train(args):
     import os
 
@@ -195,29 +202,40 @@ def cmd_train(args):
 
     eval_callback = holdout_callback = None
     if args.eval_every:
-        from fdtd2d_tpu_torch.models.diffusion import DDPMSchedule
         from fdtd2d_tpu_torch.viz.plots import plot_noisy_sample, plot_ref_v_inference
 
         os.makedirs(args.eval_dir, exist_ok=True)
-        # the reference's noise-schedule grid: dataset sample 0 across
-        # forward-noising timesteps
-        sched = DDPMSchedule.create(cfg.num_train_timesteps, device="cpu")
-        ez0 = torch.as_tensor(np.asarray(raw["Ez"][0], np.float32))
-        ez0 = ez0 / (float(np.std(np.asarray(raw["Ez"][0]))) + 1e-30)
-        ts = np.linspace(0, cfg.num_train_timesteps - 1, 6).astype(int)
-        frames = torch.stack([
-            sched.add_noise(ez0[None], torch.randn(ez0[None].shape,
-                                                   generator=torch.Generator().manual_seed(
-                                                       int(t))),
-                            torch.tensor([t]))[0] for t in ts])
-        noisy_path = os.path.join(args.eval_dir, "noise_schedule.png")
-        plot_noisy_sample(frames.numpy(), noisy_path)
-        print(f"wrote {noisy_path}")
+        # the eval chain runs, and draws from the training generator, whether
+        # or not a panel can be drawn: the trained model does not depend on
+        # matplotlib being installed
+        draw = _can_draw()
+        if draw:
+            from fdtd2d_tpu_torch.models.diffusion import DDPMSchedule
+
+            # the reference's noise-schedule grid: dataset sample 0 across
+            # forward-noising timesteps
+            sched = DDPMSchedule.create(cfg.num_train_timesteps, device="cpu")
+            ez0 = torch.as_tensor(np.asarray(raw["Ez"][0], np.float32))
+            ez0 = ez0 / (float(np.std(np.asarray(raw["Ez"][0]))) + 1e-30)
+            ts = np.linspace(0, cfg.num_train_timesteps - 1, 6).astype(int)
+            frames = torch.stack([
+                sched.add_noise(ez0[None], torch.randn(ez0[None].shape,
+                                                       generator=torch.Generator().manual_seed(
+                                                           int(t))),
+                                torch.tensor([t]))[0] for t in ts])
+            noisy_path = os.path.join(args.eval_dir, "noise_schedule.png")
+            plot_noisy_sample(frames.numpy(), noisy_path)
+            print(f"wrote {noisy_path}")
+        else:
+            print("matplotlib is not installed: eval readouts are saved as npz, not drawn")
 
         def eval_callback(epoch, pred, true):
-            path = os.path.join(args.eval_dir, f"eval_epoch_{epoch:05d}.png")
-            plot_ref_v_inference(true, pred, path)
-            print(f"epoch {epoch}: wrote {path}")
+            stem = os.path.join(args.eval_dir, f"eval_epoch_{epoch:05d}")
+            if draw:
+                plot_ref_v_inference(true, pred, stem + ".png")
+            else:
+                np.savez(stem + ".npz", pred=pred, true=np.asarray(true))
+            print(f"epoch {epoch}: wrote {stem}{'.png' if draw else '.npz'}")
 
         metrics_path = os.path.join(args.eval_dir, "holdout_metrics.csv")
 

@@ -362,22 +362,25 @@ def regress(state: TrainState, schedule: DDPMSchedule, generator, eps, mu, src, 
 def ensemble_inference(state: TrainState, schedule: DDPMSchedule, generator, eps, mu, src,
                        omega, n_members: int = 8, num_inference_steps: int = 50,
                        scales: Optional[dict] = None, prediction_type: str = "epsilon",
-                       chunk: int = 0):
+                       chunk: int = 0, draws=None):
     """Posterior-mean readout: the mean of ``n_members`` independent
     stochastic chains. ``chunk > 0`` runs the batch in slices of ``chunk``
     samples, so only that many samples' activations are live at once; the
     slices draw their own noise, so chunked and unchunked results agree in
-    distribution, not bit for bit."""
+    distribution, not bit for bit. ``draws``: a list a member of the
+    chains' (x, noises), one a slice (``inference``'s ``draws``); drawn
+    from ``generator`` when None."""
     B = eps.shape[0]
+    step = chunk if chunk and chunk < B else B
     out = None
-    for _ in range(n_members):
-        step = chunk if chunk and chunk < B else B
+    for m in range(n_members):
         member = torch.cat([
             inference(state, schedule, generator, eps[c0:c0 + step], mu[c0:c0 + step],
                       src[c0:c0 + step], omega[c0:c0 + step],
                       num_inference_steps=num_inference_steps, scales=scales,
-                      stochastic=True, prediction_type=prediction_type)
-            for c0 in range(0, B, step)])
+                      stochastic=True, prediction_type=prediction_type,
+                      draws=None if draws is None else draws[m][i])
+            for i, c0 in enumerate(range(0, B, step))])
         out = member if out is None else out + member
     return out / n_members
 

@@ -192,3 +192,29 @@ def test_cli_train_reads_a_jax_dataset(capsys, tmp_path):
                                              "uniform", "--weighting", "uniform"))
     assert len(EPOCH.findall(train_out)) == 2
     assert RESTORED.search(infer_out)
+
+
+
+def test_cli_train_eval_does_not_depend_on_drawing(capsys, tmp_path, monkeypatch):
+    """``train --epochs 2 --eval-every 1``: the losses and the holdout curve
+    are the same whether the eval readouts are drawn (matplotlib installed)
+    or saved as npz, since the eval chain draws from the training generator
+    either way; without a panel, each eval epoch's pred and true are saved."""
+    data = str(tmp_path / "d.npz")
+    assert main(["datagen", "--size", "32", "--samples", "16", "--batch", "8", "--pml", "8",
+                 "--out", data, "--device", "cpu"]) == 0
+    runs = {}
+    for draw in (True, False):
+        monkeypatch.setattr("fdtd2d_tpu_torch.cli._can_draw", lambda draw=draw: draw)
+        evald = tmp_path / f"ev_{draw}"
+        train_out, _ = _surrogate_chain(capsys, data, str(tmp_path / f"ck_{draw}"),
+                                        ("--eval-every", "1", "--eval-dir", str(evald),
+                                         "--holdout", "4"))
+        runs[draw] = (EPOCH.findall(train_out), (evald / "holdout_metrics.csv").read_text(),
+                      sorted(p.name for p in evald.glob("eval_epoch_*")))
+    assert len(runs[True][0]) == 2 and runs[False][:2] == runs[True][:2]
+    for draw, kind in ((True, "png"), (False, "npz")):
+        assert runs[draw][2] == [f"eval_epoch_00000.{kind}", f"eval_epoch_00001.{kind}"]
+    saved = np.load(tmp_path / "ev_False" / "eval_epoch_00001.npz")
+    assert saved["pred"].shape == saved["true"].shape == (32, 32)
+    assert np.all(np.isfinite(saved["pred"]))

@@ -1,9 +1,9 @@
 """The diffusion surrogate on the GPU: datagen, the train step, inference and
 the CLI, each checked before it is timed.
 
-    python tools/bench_surrogate.py [--parts datagen,train,infer,cli] [--out DIR]
+    python tools/bench_surrogate.py [--parts datagen,train,infer,cli,readout] [--out DIR]
 
-The functions below are phases 24-27 of chip_smoke.py, which calls them;
+The functions below are phases 24-27 and 38 of chip_smoke.py, which calls them;
 run alone, the script runs the ``--parts`` asked for and prints one JSON
 line each, then the card's name and power limit as nvidia-smi gives them.
 
@@ -31,6 +31,10 @@ line each, then the card's name and power limit as nvidia-smi gives them.
 - ``cli`` (phase 27): ``datagen --size 64 --samples 32 --batch 16 --pml 8``,
   ``train --epochs 2 --batch 8`` and ``infer --steps 10 --out ""``, a
   process each, on cuda.
+- ``readout`` (phase 38; after ``cli``, whose dataset and checkpoint it
+  reads): ``python -m fdtd2d_tpu_torch.apps.surrogate_report`` (holdout 8,
+  epsilon) and ``surrogate_diagnose``, a process each, on cuda: rc 0, the
+  report's keys, every value finite.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(ROOT))
 
-PARTS = ("datagen", "train", "infer", "cli")
+PARTS = ("datagen", "train", "infer", "cli", "readout")
 # H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): the train step's
 # mode decides which one bounds it (float32 runs its convolutions in TF32)
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12}
@@ -384,6 +388,54 @@ def cli_cell(workdir: Path) -> dict:
     return out
 
 
+# the report's keys for an epsilon checkpoint: no one-call readout (x0 only)
+READOUT_KEYS = sorted(["rel", "rel_fit", "corr", "rel_d", "rel_fit_d", "corr_d", "rel_fit_e",
+                       "corr_e"] + [f"{m}_s{n}" for n in (2, 5, 10, 25)
+                                    for m in ("rel_fit", "corr")])
+
+
+def readout_cell(workdir: Path, holdout: int = 8) -> dict:
+    """``apps.surrogate_report`` and ``apps.surrogate_diagnose`` on cuda, a
+    process each, on ``cli_cell``'s dataset and checkpoint (epsilon, the
+    last ``holdout`` scenes): rc 0, the report's npz keys and shapes, every
+    value finite, the headline and the probes' JSON finite."""
+    data, ckpt = str(workdir / "data.npz"), str(workdir / "ckpt")
+    report = workdir / "report"
+    runs = {"report": ["surrogate_report", data, ckpt, str(workdir / "eval"), str(report),
+                       str(holdout), "epsilon"],
+            "diagnose": ["surrogate_diagnose", ckpt, data, "--prediction-type", "epsilon"]}
+    out = {}
+    for name, (app, *args) in runs.items():
+        cmd = [sys.executable, "-m", f"fdtd2d_tpu_torch.apps.{app}", *args, "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{app} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        out[name] = {"process_s": seconds, "last_line": last}
+    rep = np.load(report / "holdout_report.npz")
+    if sorted(rep.files) != READOUT_KEYS:
+        raise AssertionError(f"report keys {sorted(rep.files)} != {READOUT_KEYS}")
+    bad = [k for k in rep.files if rep[k].shape != (holdout,) or not np.all(np.isfinite(rep[k]))]
+    plots = np.load(report / "holdout_plots.npz")
+    bad += [k for k in plots.files if plots[k].dtype.kind == "f"
+            and not np.all(np.isfinite(plots[k]))]
+    ens = out["report"]["last_line"]["ensemble"]
+    bad += [k for k, v in ens.items() if not np.isfinite(v)]
+    diag = out["diagnose"]["last_line"]
+    for part in ("train", "holdout"):
+        bad += [f"{part}.{k}" for k, v in diag[part].items() if not np.all(np.isfinite(v))]
+        if len(diag[part]["chain_corr"]) != 8 or len(diag[part]["corr"]) != len(
+                diag["timesteps"]):
+            bad.append(f"{part} lengths")
+    if bad:
+        raise AssertionError(f"readout: not finite or misshapen: {bad}")
+    out["report"]["corr_mean"] = {k: float(np.mean(rep[k])) for k in rep.files
+                                  if k.startswith("corr")}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parts", type=lambda s: [p for p in s.split(",") if p],
@@ -415,8 +467,10 @@ def main(argv=None) -> int:
 
                 state = tt.create_state(0, TRAIN_SHAPE[1:], tt.TrainConfig(), device=dev)
             res = infer_cell(dev, state)
-        else:
+        elif part == "cli":
             res = cli_cell(args.out / "cli")
+        else:
+            res = readout_cell(args.out / "cli")
         res["seconds"] = time.perf_counter() - t0
         print(json.dumps({part: res}), flush=True)
     print(device_info()["nvidia_smi"])
