@@ -315,6 +315,22 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
 36. ``parallel/dryrun.py::dryrun_multichip(["cuda:0"] * 8)``: every stage
     of the JAX dry run, each held to its single-device call; then on all
     visible cards where there are more than one.
+39. (Runs last, after ``direct2048stored``, so that it never takes that
+    leg's time.) The JAX repo's example workflows, each through its ``run``
+    function in ``fdtd2d_tpu_torch/apps`` on cuda: the ring resonator and
+    tiled vs direct at 512^2 (the scripts' size: each global FGMRES solve
+    ``converged`` as the package defines it, a relative residual under
+    10 tol, which tiled vs direct's meets at its maxiter of 600 as the JAX
+    package's does; the tiled iterate at a true 1e-8; the fields within
+    1e-3 of each other); the FDTD video at 200^2, 1000 steps, 200 frames (the script's
+    size), which ``auto`` must run on K1's resident mode, one launch a
+    frame and no K2 launch, its frames within 1e-5 of the plain float64
+    rollout on the card (phase 16's bound); the rank study at 256^2 (every
+    rank within its block, the rank-k errors in (0, 1]); direct_large at
+    512^2 in its three modes (stride 64), both solves and the 8-source
+    sweep at a true 1e-8; the decade driver on ``lowpass_problem(N=250)``
+    for 3 steps with the binarized response (finite, positive). Cut, and
+    the cut printed, where its ~60 s would take the script past 1140 s.
 
 Tolerance: 1e-5 relative (max |kernel - plain| / max |plain|), the bound of
 the float64 oracle tests (tests/test_fdtd_oracle.py). The kernel and the
@@ -344,7 +360,9 @@ phases 28-30 (no TPU kernel lies on this path either), one
 (``multidevice``) with the parity, times, iterations, launches, gathers,
 rounds and peak memory of phases 31-36 (no ``pl.pallas_call`` lies on them;
 K2's block mode runs in the dry run's stages 1, 4b and 4b'), one
-(``bench``) with phase 37's three rows, and the nvidia-smi line; its last line is
+(``bench``) with phase 37's three rows, one (``examples``) with phase 39's
+numbers (K1 is the one TPU kernel on those paths: the ``kernels`` line is
+unchanged), and the nvidia-smi line; its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1903,6 +1921,111 @@ def multidevice_phases(dev, profile_fdfd, t_script: float) -> dict:
     return out
 
 
+def examples_phase(dev, t_script: float, budget_s: float = 1140.0,
+                   estimate_s: float = 60.0) -> dict:
+    """Phase 39: the example workflows through their ``run`` functions on
+    the card (see the module's docstring). The drivers print the JAX
+    scripts' lines; those are kept out of this script's output."""
+    from fdtd2d_tpu_torch.apps import (direct_large, fdtd_video, inverse_design_decade,
+                                       rank_study, ring_resonator, tiled_vs_direct)
+    from fdtd2d_tpu_torch.apps.inverse_design import lowpass_problem
+    from fdtd2d_tpu_torch.fdtd.simulate import simulate
+    from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
+
+    t0 = phase("39. the examples on the card: ring and tiled vs direct at 512^2, the FDTD video "
+               "at 200^2 (1000 steps, 200 frames) vs the plain rollout, rank study at 256^2, "
+               "direct_large at 512^2 in three modes, the decade driver on "
+               "lowpass_problem(N=250) for 3 steps")
+    elapsed = time.perf_counter() - t_script
+    if elapsed + estimate_s > budget_s:
+        done(t0, f"cut: {elapsed:.0f} s into the script, its ~{estimate_s:.0f} s would take it "
+                 f"past {budget_s:.0f} s")
+        return {"cut": True, "elapsed_s": elapsed}
+    printed = io.StringIO()
+    out, seconds = {}, {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            numbers = fn()
+        torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t
+        return numbers
+
+    ring = run("ring_resonator", lambda: ring_resonator.run(device=dev))
+    x = ring["arrays"]["x"]
+    if not (ring["converged"] and ring["relative_residual"] < 1e-4 and np.isfinite(x).all()
+            and ring["max_abs_Ez"] > 0):
+        raise AssertionError(f"ring_resonator: {ring}")
+    tvd = run("tiled_vs_direct", lambda: tiled_vs_direct.run(device=dev))
+    if not (tvd["direct_converged"] and tvd["tiled_iterate_residual"] <= 1e-8
+            and tvd["field_error"] < 1e-3):
+        raise AssertionError(f"tiled_vs_direct: {tvd}")
+
+    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    video = run("fdtd_video", lambda: fdtd_video.run(device=dev))
+    nframes = video["nframes"]
+    if (video["backend"], video["k1_resident_launches"], fdtd_fused.launches,
+            fdtd_fused.resident_launches, fdtd_ttiled.launches) != (
+            "fused", nframes, 2 * nframes, 2 * nframes, 0):
+        raise AssertionError(f"fdtd_video: auto -> {video['backend']}, "
+                             f"{fdtd_fused.launches} K1 launches "
+                             f"({fdtd_fused.resident_launches} resident), "
+                             f"{fdtd_ttiled.launches} K2; expected K1 resident, one launch a "
+                             f"frame of each of the two rollouts")
+    eps, mu = fdtd_video.box_scene()
+    plain_cfg = dataclasses.replace(fdtd_video.config(device="cuda"), backend="torch",
+                                    dtype=torch.float64)
+    _, plain = simulate(eps, mu, plain_cfg)
+    video_err = rel_err(torch.as_tensor(video["arrays"]["frames"], device=dev), plain)
+    if not video_err <= TOL:
+        raise AssertionError(f"fdtd_video: frames {video_err:.3e} from the float64 plain "
+                             f"rollout (bound {TOL})")
+    del plain
+
+    ranks = run("rank_study", lambda: rank_study.run(N=256, device=dev))
+    table = ranks["arrays"]["ranks"]
+    nb = np.array([ranks["nc"] >> lev for lev in rank_study.LEVELS])[None, :, None, None]
+    errs = list(ranks["global_rank_errors"].values())
+    if not ((table >= 1).all() and (table <= nb).all()
+            and all(0.0 < e <= 1.0 for e in errs[:2])):
+        raise AssertionError(f"rank_study at 256^2: ranks {table.tolist()}, errors {errs}")
+
+    direct = {}
+    for mode in direct_large.MODES:
+        d = run(f"direct_large_{mode}", lambda: direct_large.run(N=512, stride=64, mode=mode,
+                                                                 device=dev))
+        if not (d["iterate_residual"] <= 1e-8 and d["sweep_worst_residual"] <= 1e-8
+                and np.isfinite(d["arrays"]["x"]).all()):
+            raise AssertionError(f"direct_large {mode} at 512^2: trace {d['trace']}, sweep "
+                                 f"{d['sweep_trace']}")
+        direct[mode] = {k: v for k, v in d.items() if k != "arrays"}
+        torch.cuda.empty_cache()
+
+    decade = run("inverse_design_decade", lambda: inverse_design_decade.run(
+        lowpass_problem(N=250, device=dev), steps=3, device=dev))
+    resp = np.array([decade["response"], decade["response_binary"]])
+    if not (decade["steps_done"] == 3 and np.isfinite(decade["history"]).all()
+            and np.isfinite(resp).all() and (resp > 0).all()):
+        raise AssertionError(f"inverse_design_decade on lowpass_problem(N=250): {decade}")
+
+    for numbers in (ring, tvd, video, ranks, decade):
+        numbers.pop("arrays")
+    out = {"ring_resonator": ring, "tiled_vs_direct": tvd,
+           "fdtd_video": {**video, "rel_err_vs_plain_float64": video_err},
+           "rank_study_256": ranks, "direct_large_512": direct,
+           "inverse_design_lowpass250": decade, "seconds": seconds,
+           "phase_s": time.perf_counter() - t0}
+    done(t0, f"ring residual {ring['relative_residual']:.2e} ({ring['iterations']} iterations); "
+             f"tiled iterate {tvd['tiled_iterate_residual']:.2e}, field error "
+             f"{tvd['field_error']:.2e}; video on K1 resident, {video['rollout_ms']:.2f} ms, "
+             f"{video_err:.2e} from float64; direct_large 512^2 warm s " +
+             ", ".join(f"{m} {v['warm_s']:.3f}" for m, v in direct.items()) +
+             f"; decade driver {decade['s_per_step_median_warm']:.3f} s a warm step; " +
+             ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    return out
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     t_script = time.perf_counter()
@@ -2488,6 +2611,7 @@ def main() -> int:
     multidevice = multidevice_phases(dev, profile_fdfd, t_script)
     direct_modes["direct2048stored"] = stored2048_phase(dev, scene2048, stored_estimate_s,
                                                         t_script)
+    examples = examples_phase(dev, t_script)
 
     print(json.dumps({"kernels": [{
         "name": "fdtd_fused (K1)", "route": "cuda",
@@ -2578,6 +2702,8 @@ def main() -> int:
                                       "cards_visible": torch.cuda.device_count(), **multidevice}}))
     print(json.dumps({"bench": {"card": info["name"], "power_limit": info["power_limit"],
                                 **bench_rows}}))
+    print(json.dumps({"examples": {"card": info["name"], "power_limit": info["power_limit"],
+                                   **examples}}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

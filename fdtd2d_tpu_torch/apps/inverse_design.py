@@ -182,9 +182,17 @@ def make_response_fn(problem: InverseDesignProblem, dtype=torch.complex64):
 def optimize(problem: InverseDesignProblem, *, steps: int = 100, lr: float = 0.05,
              clip: Tuple[float, float] = (1.0, 3.0), dtype=torch.complex64,
              design0=None, optimizer: str = "adam", log_every: int = 10,
-             callback: Optional[Callable] = None, opt_tol: Optional[float] = 1e-4):
+             callback: Optional[Callable] = None, opt_tol: Optional[float] = 1e-4,
+             info: Optional[dict] = None):
     """Projected first-order optimization of the design region. Returns
     ``(design, responses, history)``.
+
+    ``callback(step, loss, design)`` runs every ``log_every`` steps and after
+    the last; when it returns True the loop stops after that step, and the
+    design reached is the result. ``info``: a dict that receives the
+    solvers' figures (``loss.info``'s keys: iterations and residuals a
+    member), a dict a step under ``"steps"`` and the final responses'
+    forward solve under ``"final"``.
 
     ``optimizer="gd"`` is the reference's plain loop (design -= lr * grad,
     clip to bounds); the default Adam (optax's defaults: b1 0.9, b2 0.999,
@@ -220,18 +228,24 @@ def optimize(problem: InverseDesignProblem, *, steps: int = 100, lr: float = 0.0
     x0s = None
     for step in range(steps):
         value, design.grad, x0s = loss.value_and_grad(design, x0s)
+        if info is not None:
+            info.setdefault("steps", []).append(dict(loss.info))
         opt.step()
         with torch.no_grad():
             design.clamp_(clip[0], clip[1])
         history.append(float(value))
         if callback is not None and (step % log_every == 0 or step == steps - 1):
-            callback(step, history[-1], design.detach())
+            if callback(step, history[-1], design.detach()):
+                break
     design = design.detach()
     # final responses at the problem's own (tight) tolerance
     if loop_problem is not problem:
-        responses, _ = make_response_fn(problem, dtype)
+        responses, loss = make_response_fn(problem, dtype)
     with torch.no_grad():
-        return design, responses(design, x0s), history
+        final = responses(design, x0s)
+    if info is not None:
+        info["final"] = {k: loss.info[k] for k in ("forward_iterations", "forward_residual")}
+    return design, final, history
 
 
 def binarize(design, clip: Tuple[float, float] = (1.0, 3.0)) -> torch.Tensor:

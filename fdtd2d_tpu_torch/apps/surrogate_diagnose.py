@@ -32,7 +32,8 @@ import sys
 import numpy as np
 import torch
 
-from fdtd2d_tpu_torch.apps.surrogate_report import device_of, load_scenes
+from fdtd2d_tpu_torch.apps._common import device_of
+from fdtd2d_tpu_torch.apps.surrogate_report import load_scenes
 from fdtd2d_tpu_torch.models.diffusion import DDPMSchedule
 from fdtd2d_tpu_torch.models.train import (TrainConfig, compute_scales_host, conv_flags,
                                            create_state, inference, restore_checkpoint)

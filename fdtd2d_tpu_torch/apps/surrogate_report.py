@@ -50,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from fdtd2d_tpu_torch.apps._common import device_of
 from fdtd2d_tpu_torch.models.datagen import load_dataset
 from fdtd2d_tpu_torch.models.diffusion import DDPMSchedule
 from fdtd2d_tpu_torch.models.train import (TrainConfig, create_state, ema_state,
@@ -60,14 +61,6 @@ KEYS = ("eps", "mu", "src", "omega", "Ez")
 CHUNK = 8
 SWEEP = (2, 5, 10, 25)
 TAGS = ("best", "median", "worst")
-
-
-def device_of(name: str) -> torch.device:
-    """``name`` as a device; a CUDA device without a card is an error."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
-    return dev
 
 
 def load_scenes(path: str, head: int = 0, tail: int = 0) -> dict:

@@ -24,6 +24,15 @@ operator are near-resonant), so refinement contracts slowly (about 0.5 a
 round at 1024^2; :class:`DirectSolver` then defaults to 40 rounds) and
 stalls at 2048^2, where the solver warns.
 
+Each elimination (the inverse, E and the Schur complement) runs in
+complex128 and its results are stored in the operator's dtype
+(:func:`_eliminate`), where the JAX package computes them in complex64.
+Computed in complex64 on an H100, the 1024^2 hard scene's factor left raw
+residuals up to 0.2 (the JAX package's complex64 factor on a CPU: 0.03),
+and the refinement of a sweep of sources diverged; computed wide, its raw
+residuals are about 1e-4 and the sweep refines to 1e-8 in a few rounds.
+The stored factors, and so the solves, stay complex64.
+
 The plans (:func:`build_plan`) are numpy copies of the JAX package's, with
 its static per-level index maps. The port assembles the leaf systems and
 the interface couplings by index assignment into the (boxes, m^2, m^2) and
@@ -277,14 +286,21 @@ class HPSFactors:
     m: int
 
 
+def _inv_wide(A):
+    """A^{-1} computed in complex128, returned in A's dtype."""
+    return torch.linalg.inv(A.to(torch.complex128)).to(A.dtype)
+
+
 def _eliminate(A, iJ, iR):
-    """(Y, E, S) of eliminating the J points of (..., nJ + nR)-square blocks."""
+    """(Y, E, S) of eliminating the J points of (..., nJ + nR)-square
+    blocks, computed in complex128 and returned in A's dtype."""
+    dtype, A = A.dtype, A.to(torch.complex128)
     A_JJ = A[..., iJ[:, None], iJ[None, :]]
     A_JR = A[..., iJ[:, None], iR[None, :]]
     A_RR = A[..., iR[:, None], iR[None, :]]
     Y = torch.linalg.inv(A_JJ)
     E = Y @ A_JR
-    return Y, E, A_RR - A_JR.mT @ E
+    return Y.to(dtype), E.to(dtype), (A_RR - A_JR.mT @ E).to(dtype)
 
 
 def hps_factor_sub(d, Ecol, Erow, plan: HPSPlan) -> SubHPSFactors:
@@ -314,7 +330,7 @@ def hps_factor_sub(d, Ecol, Erow, plan: HPSPlan) -> SubHPSFactors:
         Y, E, S = _eliminate(Acat, dm.idx_J, dm.idx_R)
         levels.append(LevelFactors(Y=Y, E=E))
 
-    return SubHPSFactors(leaf=leaf, levels=tuple(levels), Yroot=torch.linalg.inv(S[..., 0, :, :]))
+    return SubHPSFactors(leaf=leaf, levels=tuple(levels), Yroot=_inv_wide(S[..., 0, :, :]))
 
 
 def _solve_cols(f: SubHPSFactors, plan: HPSPlan, b):

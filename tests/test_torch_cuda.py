@@ -1,7 +1,8 @@
 """K1 (both modes), K2 (single-device and block mode) and K3 mode on the
 card: the CUDA kernels against their plain versions; and the FDFD solvers
 (stored, compressed and HPS direct factors, FGMRES) on the card against
-complex128 on the CPU.
+complex128 on the CPU, and the HPS sweep of examples/direct_large.py at
+1024^2.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -533,6 +534,24 @@ def test_hps_on_card_matches_cpu(dev):
     x64, trace = solver.solve(src, refine_target=1e-10, return_split=True)
     assert trace[-1] <= 1e-10
     assert _rel2(x64, _cpu_exact(eps, mu, omega, 12, src)) < 1e-6
+
+
+def test_hps_sweep_at_1024_refines_to_1e8(dev):
+    """examples/direct_large.py's HPS leg at 1024^2 on the card: the hard
+    scene (seed 7, the source at N/3) and the script's 8-source sweep
+    through solve_batched, each source at a true 1e-8 (the JAX package's
+    complex64 factor on a CPU takes 8 rounds there,
+    tools/examples_jax_witness.py)."""
+    from fdtd2d_tpu_torch.apps import direct_large
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+
+    N = 1024
+    eps, mu, src = direct_large.hard_scene(N)
+    solver = DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, hps=True, device=dev)
+    _, per_sample, trace = solver.solve_batched(direct_large.sweep_sources(src, N),
+                                                refine_target=1e-8)
+    assert len(per_sample) == 8 and max(float(v) for v in per_sample) <= 1e-8, trace
+    assert len(trace) - 1 <= 8, trace
 
 
 def test_tf32_is_off_during_the_factors(dev, monkeypatch):

@@ -143,6 +143,30 @@ def test_full_operator_c64_matches_direct():
     assert _rel(x.numpy(), solve_direct(op, b).numpy()) < 5e-5
 
 
+def test_eliminations_run_in_complex128_and_store_complex64():
+    """A complex64 sublattice factors in complex128 and stores complex64:
+    the leaf level (whose input is the coefficients alone) equals the
+    complex128 factor of the same coefficients rounded to complex64, and
+    the levels above, fed rounded Schur complements, stay within 1e-5 of
+    it; a solve with those factors is at the complex64 floor."""
+    d, Ecol, Erow = (a.to(torch.complex64) for a in _sub_coeffs(64))
+    plan = hps.build_plan(*d.shape, 8)
+    narrow = hps.hps_factor_sub(d, Ecol, Erow, plan)
+    wide = hps.hps_factor_sub(*(a.to(torch.complex128) for a in (d, Ecol, Erow)), plan)
+    for got, want in ((narrow.leaf.Y, wide.leaf.Y), (narrow.leaf.E, wide.leaf.E)):
+        assert got.dtype == torch.complex64 and torch.equal(got, want.to(torch.complex64))
+    for got, want in [(lev.Y, w.Y) for lev, w in zip(narrow.levels, wide.levels)] + [
+            (narrow.Yroot, wide.Yroot)]:
+        assert got.dtype == torch.complex64
+        assert _rel(got.to(torch.complex128).numpy(), want.numpy()) < 1e-5
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal(d.shape) + 1j * rng.standard_normal(d.shape)
+    x = hps.hps_solve_sub(narrow, plan, torch.tensor(b, dtype=torch.complex64))
+    assert x.dtype == torch.complex64
+    want = hps.hps_solve_sub(wide, plan, torch.tensor(b))
+    assert _rel(x.numpy(), want.numpy()) < 1e-5
+
+
 def test_factor_bytes_are_predicted_and_lean():
     """Measured bytes equal the plan's prediction (and JAX's), and the ratio
     to the stored-W store 4*(N/2)^3*8 B grows past the N ~ 256 crossover."""
