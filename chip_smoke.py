@@ -151,8 +151,8 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
     scene (bench.py:85-91, 512 steps, no frames) through
     ``simulate_sharded(backend="auto")`` on a 2x2 and on a 4x1 mesh of
     ``cuda:0``, and 4096^2 (2048 steps) with 8 frames on a 1D mesh of 4: the
-    block-mode counter set to 0 before and read after (every sweep of every
-    block is a launch; single-device K2's and K1's counters stay 0), fields
+    block-mode counter read before and after (every sweep of every block is a
+    launch; single-device K2's and K1's counters do not move), fields
     and snapshots finite and non-zero in the staggered shapes, equal to
     single-device ``simulate(auto)`` within 1e-5 relative (the max abs
     difference printed), 50 steps against the float64 plain step. Then ms a
@@ -419,6 +419,15 @@ def roofline_entry(bounds: dict) -> dict:
     """The keys of phase 9's bounds of K2 or K3 that the ``kernels`` line
     carries; the plan-traffic bound stays in the ``ttiled`` line."""
     return {k: bounds[k] for k in ("plan", "bound_ms", "bound_by", "share_of_bound")}
+
+
+def launches_since(before: dict, *kernels: str) -> tuple:
+    """Each FDTD kernel's launches since the counters' snapshot ``before``
+    (``"k1"``, ``"k1_resident"``, ``"k2_sweeps"``, ``"k2_block_sweeps"``,
+    ``"k3"``; utils/trace.py)."""
+    from fdtd2d_tpu_torch.utils import trace
+
+    return tuple(trace.delta(before, f"fdtd.kernels.{k}") for k in kernels)
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1930,7 +1939,7 @@ def examples_phase(dev, t_script: float, budget_s: float = 1140.0,
                                        rank_study, ring_resonator, tiled_vs_direct)
     from fdtd2d_tpu_torch.apps.inverse_design import lowpass_problem
     from fdtd2d_tpu_torch.fdtd.simulate import simulate
-    from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
+    from fdtd2d_tpu_torch.utils import trace
 
     t0 = phase("39. the examples on the card: ring and tiled vs direct at 512^2, the FDTD video "
                "at 200^2 (1000 steps, 200 frames) vs the plain rollout, rank study at 256^2, "
@@ -1962,17 +1971,15 @@ def examples_phase(dev, t_script: float, budget_s: float = 1140.0,
             and tvd["field_error"] < 1e-3):
         raise AssertionError(f"tiled_vs_direct: {tvd}")
 
-    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    before = trace.counters()
     video = run("fdtd_video", lambda: fdtd_video.run(device=dev))
     nframes = video["nframes"]
-    if (video["backend"], video["k1_resident_launches"], fdtd_fused.launches,
-            fdtd_fused.resident_launches, fdtd_ttiled.launches) != (
+    k1, k1_resident, k2 = launches_since(before, "k1", "k1_resident", "k2_sweeps")
+    if (video["backend"], video["k1_resident_launches"], k1, k1_resident, k2) != (
             "fused", nframes, 2 * nframes, 2 * nframes, 0):
-        raise AssertionError(f"fdtd_video: auto -> {video['backend']}, "
-                             f"{fdtd_fused.launches} K1 launches "
-                             f"({fdtd_fused.resident_launches} resident), "
-                             f"{fdtd_ttiled.launches} K2; expected K1 resident, one launch a "
-                             f"frame of each of the two rollouts")
+        raise AssertionError(f"fdtd_video: auto -> {video['backend']}, {k1} K1 launches "
+                             f"({k1_resident} resident), {k2} K2; expected K1 resident, one "
+                             f"launch a frame of each of the two rollouts")
     eps, mu = fdtd_video.box_scene()
     plain_cfg = dataclasses.replace(fdtd_video.config(device="cuda"), backend="torch",
                                     dtype=torch.float64)
@@ -2042,6 +2049,7 @@ def main() -> int:
     from fdtd2d_tpu_torch.fdtd.step import MUR_BAND, precompute_coefficients
     from fdtd2d_tpu_torch.ops import _build, fdtd_blocked, fdtd_fused, fdtd_ttiled
     from fdtd2d_tpu_torch import cli
+    from fdtd2d_tpu_torch.utils import trace
     from fdtd2d_tpu_torch.utils.metrics import Timer, device_info, throughput_gcells
 
     def tool(name):
@@ -2171,14 +2179,13 @@ def main() -> int:
             case_worst, first = 0.0, None
             for mode, tiles in k1_modes:
                 what = f"{mode}{'' if tiles is None else f' {tiles[0]}x{tiles[1]} tiles'}"
-                before = fdtd_fused.launches, fdtd_fused.resident_launches
+                before = trace.counters()
                 single = run(torch.float32, nsteps, 0, states[start], mode, tiles)
                 chunked = run(torch.float32, nsteps - split, split,
                               run(torch.float32, split, 0, states[start], mode, tiles),
                               mode, tiles)
                 torch.cuda.synchronize()
-                counted = (fdtd_fused.launches - before[0],
-                           fdtd_fused.resident_launches - before[1])
+                counted = launches_since(before, "k1", "k1_resident")
                 if counted != ((3, 3) if mode == "resident" else (4 * nsteps, 0)):
                     raise AssertionError(f"{what}: counted {counted} launches ({case})")
                 first = first or single
@@ -2214,24 +2221,24 @@ def main() -> int:
     if backend != "ttiled":
         raise AssertionError(f"backend 'auto' resolved to {backend!r} at 2048^2, not 'ttiled'")
     K2048 = fdtd_ttiled.pick_sweep_depth(N, N)[0]
-    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    before = trace.counters()
     auto_fields, auto_snaps = simulate(eps, mu, cfg)
     torch.cuda.synchronize()
-    k2_launches_2048 = fdtd_ttiled.launches
-    if (k2_launches_2048, fdtd_fused.launches) != (cfg.nframes * -(-per_frame // K2048), 0):
-        raise AssertionError(f"auto at 2048^2: {k2_launches_2048} K2 and {fdtd_fused.launches} "
+    k2_launches_2048, k1 = launches_since(before, "k2_sweeps", "k1")
+    if (k2_launches_2048, k1) != (cfg.nframes * -(-per_frame // K2048), 0):
+        raise AssertionError(f"auto at 2048^2: {k2_launches_2048} K2 and {k1} "
                              f"K1 launches, expected {cfg.nframes * -(-per_frame // K2048)} "
                              f"and 0")
     check_fields(auto_fields, auto_snaps, N, cfg.nframes)
     del auto_snaps
-    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    before = trace.counters()
     (Ez, Hx, Hy), snaps = simulate(eps, mu, dataclasses.replace(cfg, backend="fused"))
     torch.cuda.synchronize()
-    streaming_launches = fdtd_fused.launches
-    if (streaming_launches, fdtd_fused.resident_launches, fdtd_ttiled.launches) != (
-            2 * cfg.nsteps, 0, 0):
+    streaming_launches, k1_resident, k2 = launches_since(before, "k1", "k1_resident",
+                                                         "k2_sweeps")
+    if (streaming_launches, k1_resident, k2) != (2 * cfg.nsteps, 0, 0):
         raise AssertionError(f"fused at 2048^2: K1 launch counter advanced by "
-                             f"{streaming_launches} ({fdtd_fused.resident_launches} resident), "
+                             f"{streaming_launches} ({k1_resident} resident), "
                              f"expected {2 * cfg.nsteps} streaming launches")
     check_fields((Ez, Hx, Hy), snaps, N, cfg.nframes)
     k2_equals_k1 = all(torch.equal(a, f) for a, f in zip(auto_fields, (Ez, Hx, Hy)))
@@ -2265,16 +2272,14 @@ def main() -> int:
         if got != want:
             raise AssertionError(f"backend 'auto' resolved to {got!r} at {shape} with "
                                  f"{per_call} steps a call, not {want!r}")
-    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    before = trace.counters()
     fields_l, snaps_l = simulate(eps_l, mu_l, cfg_l)
     torch.cuda.synchronize()
-    main_launches = fdtd_fused.launches
-    if (main_launches, fdtd_fused.resident_launches, fdtd_ttiled.launches) != (
-            cfg_l.nframes, cfg_l.nframes, 0):
+    main_launches, k1_resident, k2 = launches_since(before, "k1", "k1_resident", "k2_sweeps")
+    if (main_launches, k1_resident, k2) != (cfg_l.nframes, cfg_l.nframes, 0):
         raise AssertionError(f"auto at {limit}^2: {main_launches} K1 launches "
-                             f"({fdtd_fused.resident_launches} resident), "
-                             f"{fdtd_ttiled.launches} K2 launches; expected one resident "
-                             f"launch a frame, {cfg_l.nframes}")
+                             f"({k1_resident} resident), {k2} K2 launches; expected one "
+                             f"resident launch a frame, {cfg_l.nframes}")
     check_fields(fields_l, snaps_l, limit, cfg_l.nframes)
     short_l = dataclasses.replace(cfg_l, nsteps=200, nframes=0)
     kern_l, _ = simulate(eps_l, mu_l, short_l)
@@ -2288,17 +2293,17 @@ def main() -> int:
           ", ".join(f"{k} {v:.3e}" for k, v in errs_l.items()))
     del fields_l, snaps_l, kern_l, plain_l
 
-    fdtd_fused.launches = fdtd_fused.resident_launches = fdtd_ttiled.launches = 0
+    before = trace.counters()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         cli.main(["fdtd", "--size", "200", "--steps", "1000", "--frames", "200",
                   "--device", "cuda"])
     torch.cuda.synchronize()
-    cli_launches = fdtd_fused.launches
-    if (cli_launches, fdtd_fused.resident_launches, fdtd_ttiled.launches) != (200, 200, 0):
+    cli_launches, k1_resident, k2 = launches_since(before, "k1", "k1_resident", "k2_sweeps")
+    if (cli_launches, k1_resident, k2) != (200, 200, 0):
         raise AssertionError(f"the CLI's default rollout: {cli_launches} K1 launches "
-                             f"({fdtd_fused.resident_launches} resident), "
-                             f"{fdtd_ttiled.launches} K2; expected 200 resident launches")
+                             f"({k1_resident} resident), {k2} K2; expected 200 resident "
+                             f"launches")
     m = re.search(r"^max \|Ez\| = (\S+)$", printed.getvalue(), re.M)
     if m is None or not 0.0 < float(m.group(1)) < float("inf"):
         raise AssertionError(f"the CLI printed no finite non-zero max |Ez|: "
@@ -2428,10 +2433,10 @@ def main() -> int:
             raise AssertionError(f"no interior tile at {n_big}^2")
         per_frame = nsteps_big // nframes_big if nframes_big else nsteps_big
         expected = (nsteps_big // per_frame) * -(-per_frame // K)
-        fdtd_ttiled.launches = 0
+        before = trace.counters()
         fields_b, snaps_b = simulate(eps_b, mu_b, cfg_b)
         torch.cuda.synchronize()
-        sweeps = fdtd_ttiled.launches
+        (sweeps,) = launches_since(before, "k2_sweeps")
         if sweeps != expected:
             raise AssertionError(f"K2 launch counter advanced by {sweeps} at {n_big}^2, "
                                  f"expected {expected}")
@@ -2456,14 +2461,14 @@ def main() -> int:
               f"float64: " + ", ".join(f"{k} {v:.3e}" for k, v in errs_b.items()))
     k2_main_launches = big[4096]["sweeps"]
 
-    fdtd_blocked.launches = 0
+    before = trace.counters()
     ce2, ch2, coef2 = precompute_coefficients(torch.tensor(eps, device=dev),
                                               torch.tensor(mu, device=dev), DT, DX)
     k3_out = fdtd_blocked.fdtd_multistep_blocked(
         *grid_init(N, N, torch.float32, dev), ce2, ch2, coef2, DT, FC, N // 2, N // 2,
         200, "ricker", 0)
     torch.cuda.synchronize()
-    k3_main_launches = fdtd_blocked.launches
+    (k3_main_launches,) = launches_since(before, "k3")
     if k3_main_launches != 200:
         raise AssertionError(f"K3 launch counter advanced by {k3_main_launches}, expected 200")
     k3_errs, k3_abs = against_plain(k3_out, plain, "K3 2048^2 200-step")

@@ -33,7 +33,7 @@ from fdtd2d_tpu_torch import constants
 from fdtd2d_tpu_torch.apps._common import cli, half, scaled, timed
 from fdtd2d_tpu_torch.core import RegionDrawer, check_courant, material_init
 from fdtd2d_tpu_torch.fdtd import FDTDConfig, resolve_backend, simulate
-from fdtd2d_tpu_torch.ops import fdtd_fused
+from fdtd2d_tpu_torch.utils import trace
 
 N0 = 200
 DT, DX, FC = 5e-14, 1e-4, 30e9
@@ -67,9 +67,9 @@ def run(N: int = N0, nsteps: int = 1000, nframes: int = 200, *, device="cuda",
     backend = resolve_backend("auto", (N, N), device, nsteps // nframes if nframes else None)
     eps_d, mu_d = (torch.as_tensor(a, dtype=cfg.dtype, device=device) for a in (eps, mu))
     (_, snaps), first_s = timed(lambda: simulate(eps_d, mu_d, cfg), device)
-    resident_before = fdtd_fused.resident_launches
+    before = trace.counters()
     (fields, snaps), warm_s = timed(lambda: simulate(eps_d, mu_d, cfg), device)
-    resident = fdtd_fused.resident_launches - resident_before
+    resident = trace.delta(before, "fdtd.kernels.k1_resident")
     snaps = snaps.cpu().numpy()
     if out is not None:
         frames16, m = half(snaps)

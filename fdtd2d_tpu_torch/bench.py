@@ -203,7 +203,8 @@ def _fdtd_row(metric: str, N: int, steps: int, backend: str, device, reps: int =
     import torch
 
     from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, resolve_backend, simulate
-    from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
+    from fdtd2d_tpu_torch.ops import fdtd_ttiled
+    from fdtd2d_tpu_torch.utils import trace
 
     eps, mu = (torch.as_tensor(a, device=device) for a in _fdtd_scene(N))
     cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=steps, source_xy=(N // 2, N // 2),
@@ -211,7 +212,7 @@ def _fdtd_row(metric: str, N: int, steps: int, backend: str, device, reps: int =
     resolved = resolve_backend(backend, (N, N), device, steps)
     _check(resolved == ("ttiled" if _full(device) else "torch"),
            f"backend {backend!r} resolved to {resolved!r} at {N}^2")
-    k1, k2 = fdtd_fused.launches, fdtd_ttiled.launches
+    before = trace.counters()
     err = _fdtd_parity(eps, mu, cfg, FDTD_PARITY_STEPS)
     late = _corner_steps(N, cfg)
     state, _ = simulate(eps, mu, dataclasses.replace(cfg, nsteps=late))
@@ -222,7 +223,7 @@ def _fdtd_row(metric: str, N: int, steps: int, backend: str, device, reps: int =
         with _timer(device) as t:
             state, _ = simulate(eps, mu, cfg, state=state)
         best = max(best, N * N * steps / t.seconds / 1e9)
-    launches = (fdtd_fused.launches - k1, fdtd_ttiled.launches - k2)
+    launches = tuple(trace.delta(before, f"fdtd.kernels.{k}") for k in ("k1", "k2_sweeps"))
     K = fdtd_ttiled.pick_sweep_depth(N, N)[0]
     calls = (FDTD_PARITY_STEPS, late, FDTD_EDGE_STEPS) + (steps,) * (reps + 1)
     sweeps = sum(-(-n // K) for n in calls) if resolved == "ttiled" else 0

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from fdtd2d_tpu_torch.fdfd.refine import refine, refine_batched, true_relative_residual
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator, make_operator
+from fdtd2d_tpu_torch.utils.trace import span
 
 _PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
 
@@ -316,7 +317,9 @@ class DirectSolver:
     ``rank``, ``leaf``, ``power_iters``); ``stacked_solve=False`` factors and
     solves it one sublattice at a time. ``hps=True`` factors by nested
     dissection (fdfd/hps.py, ``hps_leaf``) and refines up to 40 rounds by
-    default.
+    default. Spans (utils/trace.py): ``fdfd.solve`` and
+    ``fdfd.solve_batched`` around the entry points, ``fdfd.backsolve``
+    around each complex64 inner solve, whatever the factor mode.
     """
 
     def __init__(self, eps, mu, dx, dy, omega, *, pml_thickness: int = 40,
@@ -391,7 +394,8 @@ class DirectSolver:
                                   sigma_max, m, torch.complex128, device)
 
     def _solve(self, r: torch.Tensor) -> torch.Tensor:
-        return self._solve_with(self.factors, r)
+        with span("fdfd.backsolve"):
+            return self._solve_with(self.factors, r)
 
     def _rounds(self, max_refine_rounds: Optional[int]) -> int:
         return self._default_refine_rounds if max_refine_rounds is None else max_refine_rounds
@@ -411,49 +415,56 @@ class DirectSolver:
         factor mode: 8 for the block-Thomas modes (typical contraction ~1e-4
         a round), 40 for ``hps`` (the JAX package's measured ~0.5 a round
         at 1024^2)."""
-        b64 = self._rhs(source, rhs_scale)
-        out = refine(self.op64, b64, self._solve, target=refine_target,
-                     max_rounds=self._rounds(max_refine_rounds), inner_dtype=self.dtype)
-        if out.relative_residual > refine_target:
-            # the pivotless c64 factorization did not resolve a digit: say so,
-            # with the element-growth diagnostic, instead of leaving a
-            # silently-unconverged trace
-            warnings.warn(
-                f"direct solve stalled at true residual "
-                f"{out.relative_residual:.2e} (target {refine_target:.0e}); "
-                f"factor element growth {self.factor_growth:.2e} — growth "
-                f">>1e6 indicates a near-singular leading block (pivotless "
-                f"block-LU); consider a PML/frequency perturbation or the "
-                f"Krylov path", RuntimeWarning, stacklevel=2)
-        if verbose:
-            print(f"direct (refined): true res={out.relative_residual:.3e} "
-                  f"rounds={out.rounds}")
-        if return_split:
-            return out.x, out.trace
-        xc = out.x.to(self.dtype)
-        return xc, list(out.trace) + [true_relative_residual(self.op64, b64, xc)]
+        with span("fdfd.solve"):
+            b64 = self._rhs(source, rhs_scale)
+            out = refine(self.op64, b64, self._solve, target=refine_target,
+                         max_rounds=self._rounds(max_refine_rounds), inner_dtype=self.dtype)
+            if out.relative_residual > refine_target:
+                # the pivotless c64 factorization did not resolve a digit: say so,
+                # with the element-growth diagnostic, instead of leaving a
+                # silently-unconverged trace
+                warnings.warn(
+                    f"direct solve stalled at true residual "
+                    f"{out.relative_residual:.2e} (target {refine_target:.0e}); "
+                    f"factor element growth {self.factor_growth:.2e} — growth "
+                    f">>1e6 indicates a near-singular leading block (pivotless "
+                    f"block-LU); consider a PML/frequency perturbation or the "
+                    f"Krylov path", RuntimeWarning, stacklevel=2)
+            if verbose:
+                print(f"direct (refined): true res={out.relative_residual:.3e} "
+                      f"rounds={out.rounds}")
+            if return_split:
+                return out.x, out.trace
+            xc = out.x.to(self.dtype)
+            return xc, list(out.trace) + [true_relative_residual(self.op64, b64, xc)]
 
     def solve_batched(self, sources, *, rhs_scale=None,
                       refine_target: float = 1e-6,
-                      max_refine_rounds: Optional[int] = None):
+                      max_refine_rounds: Optional[int] = None,
+                      return_split: bool = False):
         """Solve MANY right-hand sides against the one stored factorization.
         Returns ``(fields (B, Nx, Ny), per_sample_residuals (B,) numpy,
         trace)``; the trace holds the worst-over-batch TRUE float64 residual
-        per refinement round. The sources ride as the last axis of each
+        per refinement round, and the residuals are those of the complex128
+        iterate. The fields are its downcast to the factor's dtype, or with
+        ``return_split=True`` the complex128 iterate itself, as
+        :meth:`solve` returns it. The sources ride as the last axis of each
         row's matvec, and the refinement runs one batched float64 residual
         pass per round for the whole sweep."""
-        b64 = self._rhs(sources, rhs_scale)
-        if b64.ndim != 3:
-            raise ValueError(f"solve_batched wants (B, Nx, Ny) sources, "
-                             f"got {tuple(b64.shape)}")
-        out = refine_batched(
-            self.op64, b64, self._solve, target=refine_target,
-            max_rounds=self._rounds(max_refine_rounds), inner_dtype=self.dtype)
-        worst = float(out.relative_residual.max()) if b64.shape[0] else 0.0
-        if worst > refine_target:
-            warnings.warn(
-                f"batched direct solve stalled at worst true residual "
-                f"{worst:.2e} (target {refine_target:.0e}); factor element "
-                f"growth {self.factor_growth:.2e}", RuntimeWarning,
-                stacklevel=2)
-        return out.x.to(self.dtype), out.relative_residual, out.trace
+        with span("fdfd.solve_batched"):
+            b64 = self._rhs(sources, rhs_scale)
+            if b64.ndim != 3:
+                raise ValueError(f"solve_batched wants (B, Nx, Ny) sources, "
+                                 f"got {tuple(b64.shape)}")
+            out = refine_batched(
+                self.op64, b64, self._solve, target=refine_target,
+                max_rounds=self._rounds(max_refine_rounds), inner_dtype=self.dtype)
+            worst = float(out.relative_residual.max()) if b64.shape[0] else 0.0
+            if worst > refine_target:
+                warnings.warn(
+                    f"batched direct solve stalled at worst true residual "
+                    f"{worst:.2e} (target {refine_target:.0e}); factor element "
+                    f"growth {self.factor_growth:.2e}", RuntimeWarning,
+                    stacklevel=2)
+            x = out.x if return_split else out.x.to(self.dtype)
+            return x, out.relative_residual, out.trace

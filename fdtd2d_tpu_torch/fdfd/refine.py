@@ -14,7 +14,9 @@ always sees O(1) data. A result reports the TRUE float64 residual of the
 array it returns.
 
 Each round reads one host value (the residual norm, a vector of them when
-batched), which the stopping rule needs.
+batched), which the stopping rule needs. Spans (utils/trace.py):
+``fdfd.refine.residual`` around each residual pass, ``fdfd.refine.read``
+around each host read of the norms, where the host waits for the device.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator
+from fdtd2d_tpu_torch.utils.trace import span
 
 
 def scaled_norm(x: torch.Tensor, batched: bool = False) -> torch.Tensor:
@@ -56,12 +59,19 @@ class BatchRefineResult(NamedTuple):
 
 def _residual_step(op64: HelmholtzOperator, b, x, inner_dtype, batched=False):
     """(r/||r|| as inner_dtype, ||r|| float64 on the device)."""
-    r = op64.residual(b, x)
-    rn = scaled_norm(r, batched)
-    safe = torch.where(rn == 0, torch.ones_like(rn), rn)
-    if batched:
-        safe = safe[:, None, None]
-    return (r / safe).to(inner_dtype), rn
+    with span("fdfd.refine.residual"):
+        r = op64.residual(b, x)
+        rn = scaled_norm(r, batched)
+        safe = torch.where(rn == 0, torch.ones_like(rn), rn)
+        if batched:
+            safe = safe[:, None, None]
+        return (r / safe).to(inner_dtype), rn
+
+
+def _read(norms) -> np.ndarray:
+    """The device's norms on the host (float64); the host waits for them."""
+    with span("fdfd.refine.read"):
+        return norms.cpu().numpy()
 
 
 def true_relative_residual(op64: HelmholtzOperator, b, x) -> float:
@@ -92,7 +102,7 @@ def refine(
     forever.
     """
     x = torch.zeros_like(b) if x0 is None else x0
-    bn = float(scaled_norm(b))
+    bn = float(_read(scaled_norm(b)))
     if bn == 0.0:
         return RefineResult(x, 0.0, 0, [0.0])
 
@@ -101,7 +111,7 @@ def refine(
     rounds = 0
     for k in range(max_rounds):
         rc, rn = _residual_step(op64, b, x, inner_dtype)
-        rel = float(rn) / bn
+        rel = float(_read(rn)) / bn
         trace.append(rel)
         if rel <= target or rel >= 0.9 * prev:  # converged or stagnated
             break
@@ -110,7 +120,7 @@ def refine(
         rounds = k + 1
     else:
         _, rn = _residual_step(op64, b, x, inner_dtype)
-        trace.append(float(rn) / bn)
+        trace.append(float(_read(rn)) / bn)
     return RefineResult(x, trace[-1], rounds, trace)
 
 
@@ -135,7 +145,7 @@ def refine_batched(
         raise ValueError(f"refine_batched wants (B, Nx, Ny) fields, got {tuple(b.shape)}")
     B = b.shape[0]
     x = torch.zeros_like(b)
-    bn = scaled_norm(b, batched=True).cpu().numpy()
+    bn = _read(scaled_norm(b, batched=True))
     bn_safe = np.where(bn == 0.0, 1.0, bn)
 
     trace: List[float] = []
@@ -143,7 +153,7 @@ def refine_batched(
     rounds = 0
     for k in range(max_rounds):
         rc, rn = _residual_step(op64, b, x, inner_dtype, batched=True)
-        rel = rn.cpu().numpy() / bn_safe
+        rel = _read(rn) / bn_safe
         worst = float(rel.max()) if B else 0.0
         trace.append(worst)
         if worst <= target or worst >= 0.9 * prev:
@@ -153,7 +163,7 @@ def refine_batched(
         rounds = k + 1
     else:
         _, rn = _residual_step(op64, b, x, inner_dtype, batched=True)
-        rel = rn.cpu().numpy() / bn_safe
+        rel = _read(rn) / bn_safe
         trace.append(float(rel.max()) if B else 0.0)
     # ``rel`` is the residual of the returned x: every exit reads it last
     return BatchRefineResult(x, rel, rounds, trace)

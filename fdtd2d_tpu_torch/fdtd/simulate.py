@@ -51,6 +51,7 @@ from fdtd2d_tpu_torch.fdtd.step import fdtd_step, multistep, precompute_coeffici
 # Modules, not names: the kernel modules import fdtd.step, whose package
 # imports this module, so their names are read at call time.
 from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
+from fdtd2d_tpu_torch.utils.trace import span
 
 BACKENDS = ("auto", "torch", "fused", "ttiled")
 # "auto" past K1's resident limit, as timed on an H100 (PERF.md section 6): K2
@@ -139,45 +140,52 @@ def simulate(eps, mu, config: FDTDConfig, state=None):
     ``k*steps_per_frame + 1`` steps — a constant offset of
     ``steps_per_frame - 1`` steps per frame (as in the JAX package).
     """
-    dtype, device = config.dtype, torch.device(config.device)
-    eps = torch.as_tensor(eps, dtype=dtype, device=device)
-    mu = torch.as_tensor(mu, dtype=dtype, device=device)
-    rows, cols = eps.shape
-    if state is None:
-        Ez = torch.zeros((rows, cols), dtype=dtype, device=device)
-        hx_shape, hy_shape = ((rows, cols), (rows, cols)) if config.padded else (
-            (rows, cols - 1), (rows - 1, cols))
-        Hx = torch.zeros(hx_shape, dtype=dtype, device=device)
-        Hy = torch.zeros(hy_shape, dtype=dtype, device=device)
-    else:
-        Ez, Hx, Hy = (torch.as_tensor(a, dtype=dtype, device=device).clone()
-                      for a in state)
+    with span("fdtd.simulate"):
+        return _simulate(eps, mu, config, state)
 
-    ce, ch, coef = precompute_coefficients(eps, mu, config.dt, config.dx, dtype)
-    if config.padded:
-        ch = torch.nn.functional.pad(ch, (0, 1, 0, 1))
-    dt = torch.tensor(config.dt, dtype=dtype, device=device)
-    fc = torch.tensor(config.source_fc, dtype=dtype, device=device)
-    sx, sy = config.source_xy
-    steps_per_frame = max(config.nsteps // max(config.nframes, 1), 1)
-    backend = resolve_backend(config.backend, (rows, cols), device, steps_per_frame, dtype)
 
-    fields = (Ez, Hx, Hy)
-    unpad = backend == "fused" and not config.padded
-    if backend == "fused":
-        # K1 works on the padded layout: the state and ch are padded once and
-        # stay padded across the frames; the phantom cells go at the end
-        ch = fdtd_fused.pad_field(ch, rows, cols)
-        fields = tuple(fdtd_fused.pad_field(f, rows, cols) for f in fields)
-    # one computation of the source for all frames of a float32 K1 rollout on
-    # the card: a frame of a few steps otherwise pays it again every call
-    amps = (source_amplitudes(config.source_kind, 0, config.nsteps, dt, fc, dtype, device)
-            if backend == "fused" and device.type == "cuda" and dtype == torch.float32
-            else None)
+def _simulate(eps, mu, config: FDTDConfig, state):
+    with span("fdtd.setup"):
+        dtype, device = config.dtype, torch.device(config.device)
+        eps = torch.as_tensor(eps, dtype=dtype, device=device)
+        mu = torch.as_tensor(mu, dtype=dtype, device=device)
+        rows, cols = eps.shape
+        if state is None:
+            Ez = torch.zeros((rows, cols), dtype=dtype, device=device)
+            hx_shape, hy_shape = ((rows, cols), (rows, cols)) if config.padded else (
+                (rows, cols - 1), (rows - 1, cols))
+            Hx = torch.zeros(hx_shape, dtype=dtype, device=device)
+            Hy = torch.zeros(hy_shape, dtype=dtype, device=device)
+        else:
+            Ez, Hx, Hy = (torch.as_tensor(a, dtype=dtype, device=device).clone()
+                          for a in state)
+
+        ce, ch, coef = precompute_coefficients(eps, mu, config.dt, config.dx, dtype)
+        if config.padded:
+            ch = torch.nn.functional.pad(ch, (0, 1, 0, 1))
+        dt = torch.tensor(config.dt, dtype=dtype, device=device)
+        fc = torch.tensor(config.source_fc, dtype=dtype, device=device)
+        sx, sy = config.source_xy
+        steps_per_frame = max(config.nsteps // max(config.nframes, 1), 1)
+        backend = resolve_backend(config.backend, (rows, cols), device, steps_per_frame, dtype)
+
+        fields = (Ez, Hx, Hy)
+        unpad = backend == "fused" and not config.padded
+        if backend == "fused":
+            # K1 works on the padded layout: the state and ch are padded once and
+            # stay padded across the frames; the phantom cells go at the end
+            ch = fdtd_fused.pad_field(ch, rows, cols)
+            fields = tuple(fdtd_fused.pad_field(f, rows, cols) for f in fields)
+        # one computation of the source for all frames of a float32 K1 rollout on
+        # the card: a frame of a few steps otherwise pays it again every call
+        amps = (source_amplitudes(config.source_kind, 0, config.nsteps, dt, fc, dtype, device)
+                if backend == "fused" and device.type == "cuda" and dtype == torch.float32
+                else None)
 
     def advance(fields, n, offset):
-        return _advance(*fields, ce, ch, coef, dt, fc, sx, sy, n, config.source_kind, offset,
-                        backend, None if amps is None else amps[offset : offset + n])
+        with span("fdtd.advance"):
+            return _advance(*fields, ce, ch, coef, dt, fc, sx, sy, n, config.source_kind,
+                            offset, backend, None if amps is None else amps[offset : offset + n])
 
     def finish(fields):
         return fdtd_fused.unpad_state(*fields) if unpad else fields

@@ -8,7 +8,7 @@ writing back its own rows. On this card the K2 kernel
 one pass over HBM per step (5 reads, 3 writes: 32 B/cell/step plus the
 halo), each tile recomputing its one-cell halo. So K3 has no kernel source
 of its own; this module is its entry point with the JAX signature and its
-own launch counter.
+own launch counter, "fdtd.kernels.k3" in utils/trace.py (one per step).
 
 A CPU tensor goes to the K = 1 tile emulation
 (:func:`~fdtd2d_tpu_torch.ops.fdtd_ttiled.fdtd_multistep_ttiled_reference`);
@@ -18,9 +18,7 @@ a CUDA tensor launches the kernel or raises — there is no fallback.
 from __future__ import annotations
 
 from fdtd2d_tpu_torch.ops import fdtd_ttiled
-
-# Kernel launches made by fdtd_multistep_blocked (one per step).
-launches = 0
+from fdtd2d_tpu_torch.utils.trace import count
 
 
 def fdtd_multistep_blocked(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
@@ -31,7 +29,6 @@ def fdtd_multistep_blocked(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
     signature and ignored: the tiles are K2's planner's for K = 1, or
     ``tile`` = (TH, TW) where given. Staggered shapes in and out (the padded
     layout is accepted too); float32 only on the card."""
-    global launches
     N, M = Ez.shape
     _, TH, TW = fdtd_ttiled.resolve_plan(N, M, 1, tile)
     if Ez.device.type == "cpu":
@@ -42,5 +39,6 @@ def fdtd_multistep_blocked(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
         raise ValueError(f"no K3 kernel for device {Ez.device}")
     out = fdtd_ttiled.launch(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy, nsteps,
                              source_kind, step_offset, 1, TH, TW)
-    launches += nsteps
+    count("fdtd.kernels.launches", nsteps)
+    count("fdtd.kernels.k3", nsteps)
     return out

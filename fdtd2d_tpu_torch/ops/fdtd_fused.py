@@ -36,6 +36,7 @@ import torch
 from fdtd2d_tpu_torch.core.sources import source_amplitudes
 from fdtd2d_tpu_torch.fdtd.step import MUR_BAND, multistep
 from fdtd2d_tpu_torch.ops import _build
+from fdtd2d_tpu_torch.utils.trace import count
 
 S = MUR_BAND + 1  # cells a Mur chain spans: the least a resident tile owns a side
 MIN_SIDE = 16     # smallest grid side the kernels take
@@ -88,12 +89,11 @@ class Variant:
 VARIANTS = (Variant(0, 8, False, 5, 92), Variant(1, 8, True, 9, 72),
             Variant(2, 15, True, 6, 96))
 
-# Kernel launches made by fdtd_multistep_fused and advance_padded: one per
-# call in resident mode, two per step in streaming mode. A run shows it went
-# through the kernel by reading this before and after; resident_launches
-# counts the resident ones among them.
-launches = 0
-resident_launches = 0
+# Kernel launches made by fdtd_multistep_fused and advance_padded are counted
+# in utils/trace.py as "fdtd.kernels.k1" (one per call in resident mode, two per
+# step in streaming mode), the resident ones also as "fdtd.kernels.k1_resident",
+# and all in the layer's total "fdtd.kernels.launches". A run shows it went
+# through the kernel by the counters' deltas.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -374,7 +374,6 @@ def advance_padded(Ezp, Hxp, Hyp, ce, chp, coef, dt, fc, sx, sy, nsteps: int,
     source amplitudes (``source_amplitudes(source_kind, step_offset, nsteps,
     ...)``, float32 on the device), which a caller of many short calls
     computes once for all of them."""
-    global launches, resident_launches
     if Ezp.device.type == "cpu":
         if mode == "resident":
             out = fdtd_multistep_resident_reference(Ezp, Hxp, Hyp, ce, chp, coef, dt, fc, sx,
@@ -406,8 +405,7 @@ def advance_padded(Ezp, Hxp, Hyp, ce, chp, coef, dt, fc, sx, sy, nsteps: int,
     if mode == "resident":
         _check_layout(plan.variant, Ezp.device)
         out = launch_resident(Ezp, Hxp, Hyp, ce, chp, amps, sx, sy, coef, plan)
-        launches += 1
-        resident_launches += 1
+        _count_launches(1, resident=True)
         return out
     out = Ezp.clone(), Hxp.clone(), Hyp.clone()
     with torch.cuda.device(Ezp.device):
@@ -418,8 +416,15 @@ def advance_padded(Ezp, Hxp, Hyp, ce, chp, coef, dt, fc, sx, sy, nsteps: int,
     if err != 0:
         raise RuntimeError(f"fdtd_fused_run failed: CUDA error {err} "
                            f"({lib.fdtd_error_string(err).decode()})")
-    launches += 2 * nsteps
+    _count_launches(2 * nsteps)
     return out
+
+
+def _count_launches(n: int, resident: bool = False):
+    count("fdtd.kernels.launches", n)
+    count("fdtd.kernels.k1", n)
+    if resident:
+        count("fdtd.kernels.k1_resident", n)
 
 
 def fdtd_multistep_fused(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,

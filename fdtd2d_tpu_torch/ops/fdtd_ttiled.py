@@ -46,6 +46,7 @@ from fdtd2d_tpu_torch.fdtd.step import MUR_BAND, multistep
 # fdtd_fused as a module, its names read at call time: importing it first
 # imports fdtd.simulate, which imports this module.
 from fdtd2d_tpu_torch.ops import _build, fdtd_fused
+from fdtd2d_tpu_torch.utils.trace import count
 
 S = MUR_BAND + 1  # Mur strip width: least owned cells of a tile, least window offset
 
@@ -74,10 +75,10 @@ MAX_REDUNDANCY = 0.55
 DEPTHS = (8, 6, 4, 3, 2, 1)  # sweep depths pick_sweep_depth tries, deepest first
 
 # Kernel launches made by fdtd_multistep_ttiled (one per sweep) and by
-# fdtd_block_sweep (one per call); a run shows it went through the kernel by
-# reading these before and after.
-launches = 0
-block_launches = 0
+# fdtd_block_sweep (one per call) are counted in utils/trace.py as
+# "fdtd.kernels.k2_sweeps" and "fdtd.kernels.k2_block_sweeps", and in the
+# layer's total "fdtd.kernels.launches"; a run shows it went through the
+# kernel by the counters' deltas.
 
 
 def array_extent(n: int, lo: int, hi: int, G: int):
@@ -521,7 +522,6 @@ def fdtd_block_sweep(block: Block, src, dst, ce, ch, coef: float, amps, counter,
     neighbours' values K deep; the source ``(sx, sy)``, in domain
     coordinates, may lie outside the array. CPU tensors run the emulation
     in their own dtype; CUDA tensors launch the kernel (float32) or raise."""
-    global block_launches
     TH, TW = tile
     if not 0 < amps.shape[0] <= K:
         raise ValueError(f"a sweep takes 1..K={K} steps, got {amps.shape[0]}")
@@ -531,7 +531,8 @@ def fdtd_block_sweep(block: Block, src, dst, ce, ch, coef: float, amps, counter,
     if src.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {src.device}")
     launch_block(block, src, dst, ce, ch, coef, amps, counter, sx, sy, K, TH, TW)
-    block_launches += 1
+    count("fdtd.kernels.launches")
+    count("fdtd.kernels.k2_block_sweeps")
 
 
 def fdtd_multistep_ttiled(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
@@ -547,7 +548,6 @@ def fdtd_multistep_ttiled(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
     emulation; CUDA tensors run the K2 kernel, which takes float32 only and
     raises on anything else.
     """
-    global launches
     N, M = Ez.shape
     K, TH, TW = resolve_plan(N, M, K, tile)
     if Ez.device.type == "cpu":
@@ -558,5 +558,6 @@ def fdtd_multistep_ttiled(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy,
         raise ValueError(f"no K2 kernel for device {Ez.device}")
     out = launch(Ez, Hx, Hy, ce, ch, coef, dt, fc, sx, sy, nsteps, source_kind,
                  step_offset, K, TH, TW)
-    launches += -(-nsteps // K)
+    count("fdtd.kernels.launches", -(-nsteps // K))
+    count("fdtd.kernels.k2_sweeps", -(-nsteps // K))
     return out

@@ -135,14 +135,22 @@ def test_region_drawer_matches_jax(seed, tmp_path):
 
 def test_trace_profile_writes_a_chrome_trace(tmp_path):
     """trace_profile writes a Chrome trace under its directory that names an
-    op run inside the block."""
+    op run inside the block, and the program's spans (utils/trace.py) as
+    host annotations."""
     import json
 
+    from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, simulate
     from fdtd2d_tpu_torch.utils import trace_profile
 
     log_dir = tmp_path / "trace"
+    eps, mu = np.full((16, 16), constants.EPSILON_0), np.full((16, 16), constants.MU_0)
+    cfg = FDTDConfig(dt=5e-14, dx=1e-4, nsteps=2, source_xy=(8, 8), source_fc=30e9,
+                     backend="torch", device="cpu")
     with trace_profile(str(log_dir)) as where:
         torch.linalg.qr(torch.ones((8, 8), dtype=torch.float64) + torch.eye(8))
+        simulate(eps, mu, cfg)
     assert where == str(log_dir)
     events = json.loads((log_dir / "trace.json").read_text())["traceEvents"]
     assert any("linalg_qr" in str(e.get("name", "")) for e in events)
+    assert any(e.get("name") == "fdtd.simulate" and e.get("cat") == "user_annotation"
+               for e in events)

@@ -21,6 +21,7 @@ from fdtd2d_tpu_torch.core.grid import grid_init
 from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, simulate
 from fdtd2d_tpu_torch.fdtd.step import MUR_BAND, precompute_coefficients
 from fdtd2d_tpu_torch.ops import fdtd_blocked, fdtd_fused, fdtd_ttiled
+from fdtd2d_tpu_torch.utils import trace
 
 DT, DX, FC = 5e-14, 1e-4, 30e9
 Z0 = 376.73  # vacuum impedance: scales the random H to the random Ez
@@ -33,6 +34,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _launches(before, *kernels):
+    """Each FDTD kernel counter's gain since the snapshot ``before``."""
+    return tuple(trace.delta(before, f"fdtd.kernels.{k}") for k in kernels)
 
 
 def _medium_and_state(dev, rows, cols, start):
@@ -87,11 +93,11 @@ def test_kernel_matches_plain_float64(dev, start, source, kind):
             return fdtd_fused.fdtd_multistep_fused(*fields, ce, ch, coef, DT, FC, *source, n,
                                                    kind, offset, mode=mode, tiles=tiles)
 
-        before = fdtd_fused.launches, fdtd_fused.resident_launches
+        before = trace.counters()
         one = run(state, nsteps, 0)
         two = run(run(state, 25, 0), nsteps - 25, 25)
         torch.cuda.synchronize()
-        counted = fdtd_fused.launches - before[0], fdtd_fused.resident_launches - before[1]
+        counted = _launches(before, "k1", "k1_resident")
         assert counted == ((3, 3) if mode == "resident" else (2 * 2 * nsteps, 0))
         streaming = streaming or one
         for k, c, s, p in zip(one, two, streaming, plain):
@@ -135,10 +141,10 @@ def test_refused_cooperative_launch_raises(dev):
     chp = fdtd_fused.pad_field(ch, n, n)
     amps = torch.zeros(3, device=dev)
     too_many = fdtd_fused.ResidentPlan(fdtd_fused.VARIANTS[0], 32, 32)
-    before = fdtd_fused.launches
+    before = trace.counters()
     with pytest.raises(RuntimeError, match="refused 1024 blocks"):
         fdtd_fused.launch_resident(*padded, ce, chp, amps, 9, 9, float(coef), too_many)
-    assert fdtd_fused.launches == before
+    assert _launches(before, "k1") == (0,)
     good = fdtd_fused.fdtd_multistep_fused(*state, ce, ch, coef, DT, FC, 9, 9, 3, "ricker", 0,
                                            mode="resident")
     torch.cuda.synchronize()
@@ -153,9 +159,9 @@ def test_simulate_auto_uses_kernel(dev):
     mu = np.full((N, N), constants.MU_0)
     cfg = FDTDConfig(dt=DT, dx=DX, nsteps=40, source_xy=(20, 33), source_fc=FC,
                      nframes=4, device="cuda")
-    before = fdtd_fused.launches, fdtd_fused.resident_launches
+    before = trace.counters()
     (Ez, Hx, Hy), snaps = simulate(eps, mu, cfg)
-    assert (fdtd_fused.launches - before[0], fdtd_fused.resident_launches - before[1]) == (4, 4)
+    assert _launches(before, "k1", "k1_resident") == (4, 4)
     assert tuple(Hx.shape) == (N, N - 1) and tuple(Hy.shape) == (N - 1, N)
     plain, plain_snaps = simulate(eps, mu, dataclasses.replace(cfg, backend="torch",
                                                                dtype=torch.float64))
@@ -172,11 +178,11 @@ def test_kernel_raises_on_what_it_does_not_take(dev, case):
         Ez, Hx, Hy, ce, ch = (t.double() for t in (Ez, Hx, Hy, ce, ch))
     else:
         ce = torch.ones(2 * N, N, device=dev)[::2]
-    before = fdtd_fused.launches
+    before = trace.counters()
     with pytest.raises(ValueError):
         fdtd_fused.fdtd_multistep_fused(Ez, Hx, Hy, ce, ch, 0.5, DT, FC, 16, 16, 5,
                                         "ricker", 0)
-    assert fdtd_fused.launches == before
+    assert _launches(before, "k1") == (0,)
 
 
 @pytest.mark.parametrize("start", ["zero", "random"])
@@ -195,7 +201,7 @@ def test_tiled_kernel_matches_plain_and_emulation(dev, mode, start, source):
     (ce, ch, coef), state = _medium_and_state(dev, rows, cols, start)
     kind = "ricker" if source == (30, 25) else "sinusoidal"
     K = 7 if mode == "K2" else 1
-    module = fdtd_ttiled if mode == "K2" else fdtd_blocked
+    counter = "k2_sweeps" if mode == "K2" else "k3"
 
     def run(fields, n, offset):
         if mode == "K2":
@@ -204,12 +210,12 @@ def test_tiled_kernel_matches_plain_and_emulation(dev, mode, start, source):
         return fdtd_blocked.fdtd_multistep_blocked(*fields, ce, ch, coef, DT, FC, *source,
                                                    n, kind, offset, tile=tile)
 
-    before = module.launches
+    before = trace.counters()
     one = run(state, nsteps, 0)
     two = run(run(state, 25, 0), nsteps - 25, 25)
     torch.cuda.synchronize()
     sweeps = lambda n: -(-n // K)  # noqa: E731
-    assert module.launches - before == sweeps(nsteps) + sweeps(25) + sweeps(nsteps - 25)
+    assert _launches(before, counter) == (sweeps(nsteps) + sweeps(25) + sweeps(nsteps - 25),)
     emu = fdtd_ttiled.fdtd_multistep_ttiled_reference(
         *(f.double() for f in state), ce.double(), ch.double(), coef.double(), DT, FC,
         *source, nsteps, kind, 0, K, tile)
@@ -281,9 +287,9 @@ def test_simulate_ttiled_uses_kernel(dev):
     cfg = FDTDConfig(dt=DT, dx=DX, nsteps=40, source_xy=(20, 33), source_fc=FC,
                      nframes=4, backend="ttiled", device="cuda")
     K, _, _ = fdtd_ttiled.pick_sweep_depth(N, N)
-    before = fdtd_ttiled.launches
+    before = trace.counters()
     (Ez, Hx, Hy), snaps = simulate(eps, mu, cfg)
-    assert fdtd_ttiled.launches - before == 4 * -(-10 // K)
+    assert _launches(before, "k2_sweeps") == (4 * -(-10 // K),)
     plain, plain_snaps = simulate(eps, mu, dataclasses.replace(cfg, backend="torch",
                                                                dtype=torch.float64))
     for k, p in zip((Ez, Hx, Hy, snaps), (*plain, plain_snaps)):
@@ -295,14 +301,14 @@ def test_tiled_kernel_raises_on_float64(dev):
     Ez, Hx, Hy = (torch.zeros(s, device=dev, dtype=torch.float64)
                   for s in ((N, N), (N, N - 1), (N - 1, N)))
     ce, ch = (torch.ones(s, device=dev, dtype=torch.float64) for s in ((N, N), (N - 1, N - 1)))
-    before = fdtd_ttiled.launches, fdtd_blocked.launches
+    before = trace.counters()
     with pytest.raises(ValueError, match="float32 only"):
         fdtd_ttiled.fdtd_multistep_ttiled(Ez, Hx, Hy, ce, ch, 0.5, DT, FC, 16, 16, 5,
                                           "ricker", 0)
     with pytest.raises(ValueError, match="float32 only"):
         fdtd_blocked.fdtd_multistep_blocked(Ez, Hx, Hy, ce, ch, 0.5, DT, FC, 16, 16, 5,
                                             "ricker", 0)
-    assert (fdtd_ttiled.launches, fdtd_blocked.launches) == before
+    assert _launches(before, "k2_sweeps", "k3") == (0, 0)
 
 
 @pytest.mark.parametrize("mesh_shape,K,tile,source", [
@@ -329,11 +335,10 @@ def test_block_mode_matches_plain_float64_and_single_device(dev, mesh_shape, K, 
     n = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=[dev] * n)
     depth = fdtd_sharded._resolve_plan(rows, cols, *mesh_shape, K, tile)[0]
-    before = fdtd_ttiled.block_launches, fdtd_ttiled.launches
+    before = trace.counters()
     kern, _ = simulate_sharded_ttiled(eps, mu, cfg, mesh, state=state, K=K, tile=tile)
     torch.cuda.synchronize()
-    assert fdtd_ttiled.block_launches - before[0] == n * -(-nsteps // depth)
-    assert fdtd_ttiled.launches == before[1]
+    assert _launches(before, "k2_block_sweeps", "k2_sweeps") == (n * -(-nsteps // depth), 0)
     single, _ = simulate(eps, mu, cfg, state=state)
     plain, _ = simulate(eps, mu, dataclasses.replace(cfg, backend="torch", dtype=torch.float64),
                         state=state)
@@ -359,7 +364,7 @@ def test_block_sweep_raises_on_what_the_kernel_does_not_take(dev):
 
     amps = torch.zeros(4, device=dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    before = fdtd_ttiled.block_launches
+    before = trace.counters()
     with pytest.raises(ValueError, match="float32"):
         fdtd_ttiled.fdtd_block_sweep(blk, *buffers(torch.float64), 0.5, amps.double(), counter,
                                      32, 32, 4, (16, 32))
@@ -369,10 +374,10 @@ def test_block_sweep_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="ghost depth"):
         fdtd_ttiled.fdtd_block_sweep(blk, *buffers(), 0.5, torch.zeros(5, device=dev), counter,
                                      32, 32, 5, (16, 32))
-    assert fdtd_ttiled.block_launches == before
+    assert _launches(before, "k2_block_sweeps") == (0,)
     fdtd_ttiled.fdtd_block_sweep(blk, *buffers(), 0.5, amps, counter, 32, 32, 4, (16, 32))
     torch.cuda.synchronize()
-    assert fdtd_ttiled.block_launches == before + 1
+    assert _launches(before, "k2_block_sweeps") == (1,)
 
 
 def test_auto_with_float64_runs_the_plain_step_on_the_card(dev):
@@ -388,11 +393,11 @@ def test_auto_with_float64_runs_the_plain_step_on_the_card(dev):
     mu = np.full((N, N), constants.MU_0)
     cfg = FDTDConfig(dt=DT, dx=DX, nsteps=40, source_xy=(48, 48), source_fc=FC, nframes=4,
                      backend="auto", dtype=torch.float64, device="cuda")
-    before = (fdtd_fused.launches, fdtd_ttiled.launches, fdtd_ttiled.block_launches)
+    before = trace.counters()
     (Ez, Hx, Hy), snaps = simulate(eps, mu, cfg)
     want, want_snaps = simulate(eps, mu, dataclasses.replace(cfg, backend="torch"))
     sharded, sharded_snaps = simulate_sharded(eps, mu, cfg, make_mesh((2, 2), devices=[dev] * 4))
-    assert (fdtd_fused.launches, fdtd_ttiled.launches, fdtd_ttiled.block_launches) == before
+    assert trace.delta(before, "fdtd.kernels.launches") == 0
     assert Ez.dtype == torch.float64 and Ez.is_cuda
     for a, b, c in zip((Ez, Hx, Hy, snaps), (*want, want_snaps), (*sharded, sharded_snaps)):
         assert torch.equal(a, b)

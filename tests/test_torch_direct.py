@@ -22,7 +22,7 @@ from fdtd2d_tpu_torch.fdfd.direct import (
     DirectSolver, factor, factor_checkpointed, factor_stacked, solve_checkpointed,
     solve_direct, solve_factored, solve_stacked,
 )
-from fdtd2d_tpu_torch.fdfd.refine import refine, scaled_norm
+from fdtd2d_tpu_torch.fdfd.refine import refine, scaled_norm, true_relative_residual
 from fdtd2d_tpu_torch.ops.helmholtz import make_operator
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
@@ -173,6 +173,28 @@ def test_solve_batched_matches_single_rhs():
         assert float(torch.linalg.vector_norm(xb[i] - xi) / torch.linalg.vector_norm(xi)) < 1e-5
     with pytest.raises(ValueError, match="B, Nx, Ny"):
         solver.solve_batched(srcs[0])
+
+
+def test_solve_batched_return_split_gives_the_refined_iterate():
+    """With return_split=True solve_batched returns the complex128 iterate,
+    whose true residual meets the target for every source and is the one it
+    reports; the default return is that iterate's complex64 downcast."""
+    N, omega, target = 64, 24e9, 1e-8
+    eps, mu, _ = _hard_scene(N)
+    srcs = np.zeros((3, N, N))
+    for i, (r, c) in enumerate(((20, 33), (40, 17), (32, 32))):
+        srcs[i, r, c] = 1.0
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=12, device="cpu")
+    x64, per_sample, trace = solver.solve_batched(srcs, refine_target=target,
+                                                  return_split=True)
+    xc, per_sample_c, trace_c = solver.solve_batched(srcs, refine_target=target)
+    assert x64.dtype == torch.complex128 and xc.dtype == torch.complex64
+    assert torch.equal(x64.to(torch.complex64), xc) and trace == trace_c
+    np.testing.assert_array_equal(per_sample, per_sample_c)
+    b = torch.as_tensor(srcs).to(torch.complex128) * (-1j * omega)
+    for i in range(3):
+        true = true_relative_residual(solver.op64, b[i], x64[i])
+        assert true <= target and true == pytest.approx(per_sample[i], rel=1e-6)
 
 
 def test_growth_diagnostic_and_stall_warning():

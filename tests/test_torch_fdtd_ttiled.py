@@ -21,6 +21,7 @@ from fdtd2d_tpu_torch.fdtd.simulate import resolve_backend
 from fdtd2d_tpu_torch.fdtd.step import MUR_BAND, precompute_coefficients
 from fdtd2d_tpu_torch.ops import fdtd_blocked, fdtd_fused, fdtd_ttiled
 from fdtd2d_tpu_torch.ops.fdtd_ttiled import S
+from fdtd2d_tpu_torch.utils import trace
 
 DT, DX, FC = 5e-14, 1e-4, 30e9
 Z0 = 376.73  # vacuum impedance: scales the random H to the random Ez
@@ -136,11 +137,11 @@ def test_blocked_matches_jax_blocked_interpret():
     ref = jax_blocked(*(jnp.asarray(a) for a in state), jce, jch, jcoef, DT, FC,
                       rows // 2, cols // 2, nsteps, "ricker", 0, PH=16, interpret=True)
     ce, ch, coef = _coefficients(eps, mu)
-    before = fdtd_blocked.launches
+    before = trace.counters()
     ours = fdtd_blocked.fdtd_multistep_blocked(*(torch.from_numpy(a) for a in state),
                                                ce, ch, coef, DT, FC, rows // 2,
                                                cols // 2, nsteps, "ricker", 0, PH=16)
-    assert fdtd_blocked.launches == before  # CPU tensors launch nothing
+    assert trace.delta(before, "fdtd.kernels.k3") == 0  # CPU tensors launch nothing
     for o, r in zip(ours, ref):
         assert tuple(o.shape) == r.shape
         assert _rel(o, r) < 1e-5
@@ -351,12 +352,14 @@ def test_cpu_tensors_launch_nothing_and_are_not_modified():
     ce, ch, coef = _coefficients(eps, mu)
     fields = [torch.from_numpy(a) for a in _random_state(rng, rows, cols)]
     before = [f.clone() for f in fields]
-    counts = fdtd_ttiled.launches, fdtd_blocked.launches
+    counts = trace.counters()
     out = fdtd_ttiled.fdtd_multistep_ttiled(*fields, ce, ch, coef, DT, FC, 5, 7, 8,
                                             "sinusoidal", 3, K=3, tile=(12, 10))
     blocked = fdtd_blocked.fdtd_multistep_blocked(*fields, ce, ch, coef, DT, FC, 5, 7,
                                                   8, "sinusoidal", 3)
-    assert (fdtd_ttiled.launches, fdtd_blocked.launches) == counts == (0, 0)
+    kernels = ("fdtd.kernels.k2_sweeps", "fdtd.kernels.k3")
+    assert ([trace.delta(counts, k) for k in kernels] == [counts.get(k, 0) for k in kernels]
+            == [0, 0])
     for f, b, o, k in zip(fields, before, out, blocked):
         assert torch.equal(f, b) and not torch.equal(o, b) and torch.equal(o, k)
 

@@ -32,6 +32,7 @@ from fdtd2d_tpu_torch.parallel import (
     Mesh, make_mesh, mesh_blocks, plan_sharded_ttiled, plan_sharded_ttiled_2d,
     simulate_sharded, simulate_sharded_ttiled, simulate_sharded_ttiled_2d)
 from fdtd2d_tpu_torch.parallel import fdtd_sharded
+from fdtd2d_tpu_torch.utils import trace
 
 DT, DX, FC = 5e-14, 1e-4, 30e9
 Z0 = 376.73  # vacuum impedance: scales the random H to the random Ez
@@ -157,10 +158,11 @@ def test_block_emulation_equals_plain_step(case):
     mesh = _cpu_mesh(mesh_shape)
     plan = fdtd_sharded._resolve_plan(rows, cols, *mesh_shape, K, tile)
     assert plan == (K, K, *tile)
-    before = fdtd_ttiled.block_launches
+    before = trace.counters()
     got, snaps = fdtd_sharded._rollout(eps, mu, cfg, mesh, state, K, K, tile, by_sweeps=True,
                                        fill=math.nan)
-    assert snaps is None and fdtd_ttiled.block_launches == before  # CPU blocks launch nothing
+    # CPU blocks launch nothing
+    assert snaps is None and trace.delta(before, "fdtd.kernels.k2_block_sweeps") == 0
     sweeps = -(-nsteps // K)
     copies = len(fdtd_sharded.exchange_plan(mesh_blocks(rows, cols, *mesh_shape, K)))
     assert fdtd_sharded.exchange_copies == sweeps * copies

@@ -133,6 +133,7 @@ def block_parity(dev, log=print) -> dict:
     from fdtd2d_tpu_torch.fdtd.step import MUR_BAND
     from fdtd2d_tpu_torch.ops import fdtd_ttiled
     from fdtd2d_tpu_torch.parallel import fdtd_sharded, mesh_blocks
+    from fdtd2d_tpu_torch.utils import trace
 
     worst = {"float64 plain": 0.0, "float64 emulation": 0.0, "single-device K2": 0.0}
     single_abs, least_cover, least_interior = 0.0, 1.0, None
@@ -152,11 +153,12 @@ def block_parity(dev, log=print) -> dict:
                              source_kind=kind, backend="ttiled", device=str(dev))
             cfg64 = dataclasses.replace(cfg, backend="torch", dtype=torch.float64)
             mesh = card_mesh(shape, dev)
-            before = fdtd_ttiled.block_launches, fdtd_ttiled.launches
+            before = trace.counters()
             kern, _ = fdtd_sharded.simulate_sharded_ttiled(eps, mu, cfg, mesh, state=state,
                                                            K=K, tile=(TH, TW))
             torch.cuda.synchronize()
-            counted = (fdtd_ttiled.block_launches - before[0], fdtd_ttiled.launches - before[1])
+            counted = (trace.delta(before, "fdtd.kernels.k2_block_sweeps"),
+                       trace.delta(before, "fdtd.kernels.k2_sweeps"))
             sweeps = -(-PARITY_STEPS // K)
             if counted != (sweeps * len(blocks), 0):
                 raise AssertionError(f"{case}: counted {counted} launches, expected "
@@ -241,8 +243,8 @@ def full_size(dev, N: int, shape, nsteps: int, nframes: int = 0, parity_steps: i
     module docstring says."""
     from fdtd2d_tpu_torch import constants
     from fdtd2d_tpu_torch.fdtd.simulate import FDTDConfig, resolve_backend, simulate
-    from fdtd2d_tpu_torch.ops import fdtd_fused, fdtd_ttiled
     from fdtd2d_tpu_torch.parallel import fdtd_sharded, plan_sharded_ttiled_2d, simulate_sharded
+    from fdtd2d_tpu_torch.utils import trace
 
     mesh = card_mesh(shape, dev)
     grid_shape = mesh.grid_shape
@@ -260,13 +262,14 @@ def full_size(dev, N: int, shape, nsteps: int, nframes: int = 0, parity_steps: i
         raise AssertionError(f"single-device 'auto' does not take K2 at {N}^2")
 
     # -- the main path, counted -----------------------------------------------------
-    fdtd_ttiled.launches = fdtd_ttiled.block_launches = fdtd_fused.launches = 0
+    before = trace.counters()
     torch.cuda.reset_peak_memory_stats(dev)
     fields, snaps = simulate_sharded(eps, mu, cfg, mesh)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     sweeps = -(-nsteps // K)
-    counted = (fdtd_ttiled.block_launches, fdtd_ttiled.launches, fdtd_fused.launches)
+    counted = tuple(trace.delta(before, f"fdtd.kernels.{k}")
+                    for k in ("k2_block_sweeps", "k2_sweeps", "k1"))
     if counted != (sweeps * n_blocks, 0, 0):
         raise AssertionError(f"{what}: counted {counted} launches (block mode, single-device "
                              f"K2, K1), expected {sweeps * n_blocks}, 0, 0")
