@@ -120,6 +120,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     from ``default_rng(0)`` through ``solve_batched``, timed per source; the
     worst true residual < 1e-5; each batched field against its single solve
     (<= 1e-5 relative in the 2-norm).
+40. (Runs right after phase 12, on its 1024^2 factor.) The backsolve's
+    row-sweep kernel (ops/fdfd_rowsweep.py) against its plain version, the
+    torch loop, at K = 16 and K = 1: relative error (<= 2e-5 in the 2-norm;
+    both complex64, summed in another order), two launches a solve, ms a
+    pass (one direction, one read of W) of each by CUDA events in turns,
+    and the kernel's share of the pass's floor (W read once, b or z read
+    and z or x written once, at 3.35 TB/s; 8 float32 operations a complex
+    multiply-add at 67 TFLOP/s); then seven warm ``DirectSolver.solve``
+    calls to 1e-6 at 1024^2 on the host clock.
 13. The checkpointed mode at 512^2, stride 32: its raw complex64 backsolve
     against the stored-factor one (<= 1e-5), its refined residual (<= 1e-6),
     factor and warm-solve times. It runs right after phase 11, while that
@@ -348,7 +357,7 @@ library_ms is null), one with the GCells/s of phase 5, one with phase 9's
 table of K1's modes, one with the times, errors, plan-traffic
 bounds and tile counts of phases 6-9, one with the parity and the cells of
 phases 17-18,
-one with the times, residuals and peak memory of phases 10-15, one
+one with the times, residuals and peak memory of phases 10-15 and 40, one
 (``invdes``) with the errors, times, iterations, launches and peak memory
 of phases 19-20, one (``tiled_timedomain``) with the parity, probe, times,
 iterations, rounds, launches and peak memory of phases 21-23, one
@@ -591,6 +600,80 @@ def peak_gb(dev) -> float:
     return torch.cuda.max_memory_allocated(dev) / 1e9
 
 
+def rowsweep_floor_ms(groups: int, nr: int, nc: int, K: int) -> float:
+    """The least time of one pass of the row sweep (one direction) on an
+    H100 at 700 W: all of W read once, b (or z) read once and z (or x)
+    written once, against 3.35 TB/s; 8 float32 operations a complex
+    multiply-add, against 67 TFLOP/s."""
+    moved = 8 * groups * nr * (nc * nc + 2 * K * nc)
+    flops = 8 * groups * nr * nc * nc * K
+    return 1e3 * max(moved / HBM_BYTES_S, flops / F32_FLOPS)
+
+
+def events_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` by CUDA events over ``reps`` calls,
+    after one call to warm up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rowsweep_phase(dev, solver, src) -> dict:
+    """Phase 40 (right after phase 12, on its 1024^2 solver): the row-sweep
+    kernel against its plain version, the torch loop, at K = 16 (the
+    benchmark's batch) and K = 1 (``DirectSolver.solve``): their agreement,
+    ms a pass (one direction, one read of W) of each by CUDA events in
+    turns, and the kernel's share of the pass's floor; then seven warm
+    ``solver.solve(src)`` calls to 1e-6 on the host clock."""
+    from fdtd2d_tpu_torch.ops import fdfd_rowsweep as rs, fdtd_fused
+    from fdtd2d_tpu_torch.utils import trace
+
+    t0 = phase("40. the row-sweep kernel at 1024^2 vs the torch loop, K = 16 and K = 1")
+    f = solver.factors.stacked
+    groups, nr, nc = f.Ws.shape[0], f.Ws.shape[-3], f.Ws.shape[-1]
+    nv, sv = f.nvals.contiguous(), f.svals.contiguous()
+    out = {}
+    for K in (16, 1):
+        rng = np.random.default_rng(K)
+        shape = (groups, K, nr, nc)
+        b = torch.tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                         dtype=torch.complex64, device=dev)
+        runs = {"kernel": lambda: rs.row_sweep(f.Ws, nv, sv, b),
+                "plain": lambda: rs.row_sweep_reference(f.Ws, nv, sv, b)}
+        before = trace.counters()
+        x_kernel = runs["kernel"]()
+        torch.cuda.synchronize(dev)
+        launches = trace.delta(before, "fdfd.kernels.row_sweeps")
+        err = norm_rel(x_kernel, runs["plain"]())
+        if launches != 2 or not err <= 2e-5:   # tests/test_torch_cuda.py's ROWSWEEP_TOL
+            raise AssertionError(f"row sweep at K = {K}: {launches} launches, relative error "
+                                 f"{err:.3e} against the torch loop")
+        ms = {"kernel": [], "plain": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            ms[name].append(events_ms(runs[name], 10 if name == "kernel" else 2) / 2)
+        floor = rowsweep_floor_ms(groups, nr, nc, K)
+        best = min(ms["kernel"])
+        plan = rs.plan_row_sweep(groups, nr, nc, K, *fdtd_fused.device_numbers(dev)[::2])
+        out[f"K{K}"] = {"plan": dataclasses.asdict(plan),
+                        "kernel_ms_a_pass": ms["kernel"], "plain_ms_a_pass": ms["plain"],
+                        "floor_ms_a_pass": floor, "floor_share": floor / best,
+                        "rel_err_vs_plain": err, "launches_a_solve": launches}
+        print(f"   K = {K}: kernel {[f'{t:.3f}' for t in ms['kernel']]} ms a pass, loop "
+              f"{[f'{t:.3f}' for t in ms['plain']]}, floor {floor:.3f} ms "
+              f"({100 * floor / best:.1f}% of it), kernel vs loop {err:.3e}")
+        del b, x_kernel
+    solve_s = [timed(lambda: solver.solve(src, refine_target=1e-6), dev)[1] for _ in range(7)]
+    out["solve_1024_s"] = solve_s
+    done(t0, f"DirectSolver.solve at 1024^2: {[f'{t:.4f}' for t in solve_s]} s")
+    return out
+
+
 def fdfd_phases(dev) -> dict:
     """Phases 10-15: the FDFD path on the card. Returns the numbers of the
     ``{"fdfd": ...}`` line."""
@@ -732,11 +815,13 @@ def fdfd_phases(dev) -> dict:
                                 "worst_residual": worst,
                                 "batched_vs_single_rel_err": max(singles),
                                 "peak_gb": batched_peak}
-    del solver2, xb
-    torch.cuda.empty_cache()
+    del xb
     done(t0, f"factor {factor2_s:.3f} s (peak {factor_peak:.3f} GB), warm solve {solve2_s:.4f} s "
              f"{[f'{t:.2e}' for t in trace2]}; batched {B}: {batched_s / B:.4f} s a source, "
              f"worst {worst:.3e}, vs singles {max(singles):.3e}, peak {batched_peak:.3f} GB")
+    out["rowsweep1024"] = rowsweep_phase(dev, solver2, src2)
+    del solver2
+    torch.cuda.empty_cache()
 
     # -- 14. fdfd512iter --------------------------------------------------------------
     t0 = phase("14. fdfd512iter: FDM-FGMRES at 512^2, restart 20")
@@ -2085,9 +2170,13 @@ def main() -> int:
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             kernel_name = next((k for k in ("h_update", "e_update", "resident_steps",
-                                            "ttiled_sweep") if k in line), line.strip())
+                                            "ttiled_sweep", "row_sweep") if k in line),
+                               line.strip())
         elif "registers" in line or "spill" in line:
             print(f"   ptxas {kernel_name}: {line.strip()}")
+            if kernel_name == "row_sweep" and "spill" in line and (
+                    "0 bytes spill stores, 0 bytes spill loads" not in line):
+                raise AssertionError(f"ptxas spills in row_sweep: {line.strip()}")
             if kernel_name not in ("ttiled_sweep", "resident_steps"):
                 continue
             if "spill" in line:

@@ -191,8 +191,9 @@ def sublattice_views(f: CompressedSublatticeFactors, shape) -> CompressedFactors
 
 def _solve_rows_compressed(f: CompressedSublatticeFactors, b):
     """x ~= A^{-1} b from compressed rows; b (..., nr, nc, K). The forward
-    and backward passes of fdfd/direct.py's ``_solve_rows`` with the dense W
-    matvec replaced by the HODLR one."""
+    and backward passes of the stored rows' torch loop
+    (ops/fdfd_rowsweep.py::row_sweep_reference) with the dense W matvec
+    replaced by the HODLR one."""
     nr = b.shape[-3]
     z = _hodlr_matvec(_row_of(f.rows, 0), b[..., 0, :, :])
     zs = [z]

@@ -16,16 +16,19 @@ per block row forward and one backward. complex64 block-LU without
 pivoting loses a few digits; :class:`DirectSolver` wraps the solve in
 complex128 iterative refinement (fdfd/refine.py).
 
-The row recursions are host loops of torch ops over the row axis (-2) of
-(..., nr, nc) coefficient arrays, so one code path serves one sublattice
-(odd N) and the four stacked on a leading axis (even N: ``torch.linalg.inv``
-and ``torch.matmul`` batch the four). A solve carries its right-hand sides
-as the last axis, so a batch of sources widens each row's matvec into a
-matmul instead of looping. An operator batched over scenes (eps, omega and
-the stretch vectors with a leading (B,) axis, models/datagen.py) factors into
-one factor set a scene in the same pass: the coefficients, the four
-sublattices and the row recursions all carry the scene axis, and a solve
-takes one right-hand side a scene, (B, Nx, Ny).
+The row recursions run over the row axis (-2) of (..., nr, nc) coefficient
+arrays, so one code path serves one sublattice (odd N) and the four stacked
+on a leading axis (even N: ``torch.linalg.inv`` and the solve batch the
+four). The factor's recursion is a host loop of torch ops. The solve's two,
+for a complex64 store on the card, are one launch a direction of the
+row-sweep kernel (ops/fdfd_rowsweep.py), and otherwise its plain version, a
+host loop of torch ops. A solve carries K right-hand sides, so a batch of
+sources widens each row's matvec into a matrix product instead of looping.
+An operator batched over scenes (eps, omega and the stretch vectors with a
+leading (B,) axis, models/datagen.py) factors into one factor set a scene in
+the same pass: the coefficients, the four sublattices and the row recursions
+all carry the scene axis, and a solve takes one right-hand side a scene,
+(B, Nx, Ny).
 
 Coefficients (checked against HelmholtzOperator.apply in the tests):
 
@@ -51,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from fdtd2d_tpu_torch.fdfd.refine import refine, refine_batched, true_relative_residual
+from fdtd2d_tpu_torch.ops import fdfd_rowsweep
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator, make_operator
 from fdtd2d_tpu_torch.utils.trace import span
 
@@ -173,19 +177,14 @@ def _factor_rows(d, e, w, n, s, stride: Optional[int] = None):
 
 
 def _solve_rows(f: SublatticeFactors, b):
-    """x = A^{-1} b from stored inverses; b (..., nr, nc, K)."""
-    nr = b.shape[-3]
-    z = f.Ws[..., 0, :, :] @ b[..., 0, :, :]
-    zs = [z]
-    for r in range(1, nr):
-        z = f.Ws[..., r, :, :] @ (b[..., r, :, :] - f.nvals[..., r, :, None] * z)
-        zs.append(z)
-    x = zs[-1]
-    xs = [x]
-    for r in range(nr - 2, -1, -1):
-        x = zs[r] - f.Ws[..., r, :, :] @ (f.svals[..., r, :, None] * x)
-        xs.append(x)
-    return torch.stack(xs[::-1], dim=-3)
+    """x = A^{-1} b from stored inverses; b (..., K, nr, nc). A complex64
+    store on the card runs the row-sweep kernel, one launch a direction
+    (ops/fdfd_rowsweep.py); any other (CPU tensors, complex128 factors) the
+    torch loop that is its plain version."""
+    if f.Ws.is_cuda and f.Ws.dtype == torch.complex64:
+        return fdfd_rowsweep.row_sweep(f.Ws, f.nvals.contiguous(), f.svals.contiguous(),
+                                       b.contiguous())
+    return fdfd_rowsweep.row_sweep_reference(f.Ws, f.nvals, f.svals, b)
 
 
 def _solve_rows_ckpt(f: CkptSublatticeFactors, b):
@@ -215,13 +214,15 @@ def _solve_rows_ckpt(f: CkptSublatticeFactors, b):
     return torch.stack(xs[::-1], dim=-3)
 
 
-# the row solve of each sublattice factor type, b (..., nr, nc, K); a
+# the row solve of each other sublattice factor type, b (..., nr, nc, K); a
 # module defining another factor type adds its own (fdfd/compressed.py)
-_ROW_SOLVES = {SublatticeFactors: _solve_rows, CkptSublatticeFactors: _solve_rows_ckpt}
+_ROW_SOLVES = {CkptSublatticeFactors: _solve_rows_ckpt}
 
 
 def _solve_sub(f, b):
     """Solve one factored sublattice (or four stacked); b (..., K, nr, nc)."""
+    if type(f) is SublatticeFactors:
+        return _solve_rows(f, b)
     return _ROW_SOLVES[type(f)](f, b.movedim(-3, -1).contiguous()).movedim(-1, -3)
 
 

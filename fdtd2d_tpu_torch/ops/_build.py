@@ -124,6 +124,14 @@ def load() -> ctypes.CDLL:
         lib.fdtd_ttiled_run.restype = i
         lib.fdtd_ttiled_layout.argtypes = [i, i, ctypes.POINTER(i)]  # WH WW out[4]
         lib.fdtd_ttiled_layout.restype = i
+        lib.fdfd_rowsweep_run.argtypes = [p, p, p, p, p,                # W nv sv b x
+                                          p, p, ctypes.c_ulonglong,     # exch tags base
+                                          i, i, i, i,                   # backward units unit0 ctas
+                                          i, i, i, i, i, i, i,          # nr nc K kc chunks kp tr
+                                          p]                            # stream
+        lib.fdfd_rowsweep_run.restype = i
+        lib.fdfd_rowsweep_layout.argtypes = [i, i, i, ctypes.POINTER(i)]  # kp nc tr out[3]
+        lib.fdfd_rowsweep_layout.restype = i
         lib.fdtd_error_string.argtypes = [i]
         lib.fdtd_error_string.restype = ctypes.c_char_p
         _lib = lib

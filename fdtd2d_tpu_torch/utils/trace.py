@@ -17,7 +17,9 @@ Names are dotted by layer: ``fdtd.simulate``, ``fdtd.setup``,
 of whichever FDTD kernel ran, and per kernel ``fdtd.kernels.k1``,
 ``.k1_resident``, ``.k2_sweeps``, ``.k2_block_sweeps``, ``.k3`` (ops/);
 ``fdfd.solve``, ``fdfd.solve_batched``, ``fdfd.backsolve`` (fdfd/direct.py);
-``fdfd.refine.residual``, ``fdfd.refine.read`` (fdfd/refine.py).
+``fdfd.refine.residual``, ``fdfd.refine.read`` (fdfd/refine.py);
+``fdfd.kernels.row_sweeps``, the launches of the backsolve's row-sweep
+kernel, one a direction (ops/fdfd_rowsweep.py).
 """
 
 from __future__ import annotations

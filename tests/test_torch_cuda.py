@@ -1,5 +1,6 @@
-"""K1 (both modes), K2 (single-device and block mode) and K3 mode on the
-card: the CUDA kernels against their plain versions; and the FDFD solvers
+"""K1 (both modes), K2 (single-device and block mode), K3 mode and the
+direct backsolve's row sweep on the card: the CUDA kernels against their
+plain versions; and the FDFD solvers
 (stored, compressed and HPS direct factors, FGMRES) on the card against
 complex128 on the CPU, and the HPS sweep of examples/direct_large.py at
 1024^2.
@@ -11,6 +12,7 @@ imports no JAX, so it also runs where JAX is not installed:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -580,3 +582,162 @@ def test_tf32_is_off_during_the_factors(dev, monkeypatch):
     for kw in (dict(compressed=True, rank=8, leaf=8), dict(hps=True)):
         DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=12, device=dev, **kw)
     assert len(seen) > 32 and set(seen) == {(False, "highest")}
+
+
+# -- the row-sweep kernel of the block-Thomas backsolve (ops/fdfd_rowsweep.py) ---------
+
+# The kernel and the torch loop make the same complex64 products with float32
+# FMAs; they sum each row's nc terms in another order (the kernel in 16 or
+# more interleaved partial sums, cuBLAS in its tiles), so the two differ by
+# float32 rounding carried through the recurrences: at most 7.3e-6 of a
+# right-hand side's 2-norm on an H100 (1024^2, K = 16, 512 rows each way),
+# 1.4e-6 or less at 128^2 and 129^2.
+ROWSWEEP_TOL = 2e-5
+
+
+@functools.lru_cache(maxsize=1)
+def _stacked_factor(N):
+    """The stacked complex64 factor of the benchmark's hard binary scene at N^2."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd.direct import factor_stacked
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    eps, mu, _ = hard_binary_scene(N)
+    return factor_stacked(make_operator(eps, mu, 1e-3, 1e-3, 17e9, device="cuda")).stacked
+
+
+def _sweep_vs_loop(f, K, seed=0):
+    """(worst relative 2-norm error of a right-hand side, launches): the
+    kernel against the torch loop on random complex64 right-hand sides."""
+    from fdtd2d_tpu_torch.ops import fdfd_rowsweep as rs
+
+    rng = np.random.default_rng(seed)
+    shape = tuple(f.Ws.shape[:-3]) + (K,) + tuple(f.Ws.shape[-3:-1])
+    b = torch.tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                     dtype=torch.complex64, device=f.Ws.device)
+    nv, sv = f.nvals.contiguous(), f.svals.contiguous()
+    before = trace.counters()
+    x = rs.row_sweep(f.Ws, nv, sv, b)
+    torch.cuda.synchronize()
+    launches = trace.delta(before, "fdfd.kernels.row_sweeps")
+    want = rs.row_sweep_reference(f.Ws, nv, sv, b)
+    assert x.shape == want.shape and x.dtype == torch.complex64
+    err = (torch.linalg.vector_norm(x - want, dim=(-2, -1))
+           / torch.linalg.vector_norm(want, dim=(-2, -1)))
+    return float(err.max()), launches
+
+
+@pytest.mark.parametrize("N, K", [(128, 1), (128, 16), (128, 40),
+                                  (1024, 1), (1024, 16), (1024, 40)])
+def test_row_sweep_matches_the_loop_on_stacked_factors(dev, N, K):
+    """The kernel against its plain version on the card, in complex64, on
+    the stacked factors of the hard binary scene: one launch a direction
+    (K = 40 runs as three chunks in the same launch)."""
+    err, launches = _sweep_vs_loop(_stacked_factor(N), K)
+    assert launches == 2
+    assert err <= ROWSWEEP_TOL, (N, K, err)
+
+
+def test_row_sweep_matches_the_loop_on_an_odd_grid(dev):
+    """129^2: one sublattice a call, rows of 65 and 64 (the odd rows take the
+    kernel's 8-byte copies), couplings that are strided views; through
+    solve_factored, the field of the kernel against that of the loop."""
+    from fdtd2d_tpu_torch.fdfd import direct
+    from fdtd2d_tpu_torch.ops import fdfd_rowsweep as rs
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    eps, mu, src = _hard(129)
+    f = direct.factor(make_operator(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=12, device=dev))
+    assert {s.Ws.shape[-1] for s in f.subs} == {64, 65}
+    for k, sub in enumerate(f.subs):
+        err, launches = _sweep_vs_loop(sub, 16, seed=k)
+        assert launches == 2 and err <= ROWSWEEP_TOL, (k, err)
+    b = torch.tensor(-1j * 17e9 * src, dtype=torch.complex64, device=dev)
+    before = trace.counters()
+    x = direct.solve_factored(f, b)
+    assert trace.delta(before, "fdfd.kernels.row_sweeps") == 8
+    loop = [rs.row_sweep_reference(s.Ws, s.nvals, s.svals, b[None, px::2, py::2])[0]
+            for s, (px, py) in zip(f.subs, direct._PARITIES)]
+    want = torch.zeros_like(b)
+    for xs, (px, py) in zip(loop, direct._PARITIES):
+        want[px::2, py::2] = xs
+    err = float(torch.linalg.vector_norm(x - want) / torch.linalg.vector_norm(want))
+    assert err <= ROWSWEEP_TOL, err
+
+
+def test_row_sweep_matches_the_loop_on_a_scene_batch(dev):
+    """A scene-batched stacked factor of three scenes at 96^2 (12 groups):
+    two right-hand sides a scene."""
+    from fdtd2d_tpu_torch.fdfd.direct import factor_stacked
+    from fdtd2d_tpu_torch.models.datagen import make_operator_traced
+
+    B, N = 3, 96
+    rng = np.random.default_rng(N)
+    eps = np.where(rng.random((B, N, N)) > 0.5, 5.0, 1.0) * constants.EPSILON_0
+    mu = np.full((B, N, N), constants.MU_0)
+    omega = rng.uniform(18e9, 30e9, B)
+    op = make_operator_traced(torch.tensor(eps, device=dev), torch.tensor(mu, device=dev), 1e-3,
+                              1e-3, torch.tensor(omega, device=dev), 8, dtype=torch.complex64)
+    f = factor_stacked(op).stacked
+    assert f.Ws.shape == (4, B, N // 2, N // 2, N // 2)
+    err, launches = _sweep_vs_loop(f, 2)
+    assert launches == 2 and err <= ROWSWEEP_TOL, err
+
+
+def test_solve_batched_takes_the_row_sweep(dev, monkeypatch):
+    """DirectSolver.solve_batched at 256^2: two row-sweep launches an inner
+    solve; the same refinement rounds as with the torch loop in their
+    place, and fields within 1e-6 of the loop's."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd import direct
+    from fdtd2d_tpu_torch.ops import fdfd_rowsweep as rs
+
+    N, B = 256, 4
+    eps, mu, _ = hard_binary_scene(N)
+    solver = direct.DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, device=dev)
+    ij = np.random.default_rng(0).integers(N // 4, 3 * N // 4, size=(B, 2))
+    srcs = np.zeros((B, N, N))
+    srcs[np.arange(B), ij[:, 0], ij[:, 1]] = 1.0
+    before = trace.counters()
+    x, res, tr = solver.solve_batched(srcs, refine_target=1e-6)
+    inner = trace.delta(before, "fdfd.backsolve")
+    assert inner == len(tr) - 1 >= 1
+    assert trace.delta(before, "fdfd.kernels.row_sweeps") == 2 * inner
+    monkeypatch.setattr(direct, "_solve_rows",
+                        lambda f, b: rs.row_sweep_reference(f.Ws, f.nvals, f.svals, b))
+    before = trace.counters()
+    x_loop, res_loop, tr_loop = solver.solve_batched(srcs, refine_target=1e-6)
+    assert trace.delta(before, "fdfd.kernels.row_sweeps") == 0
+    assert len(tr) == len(tr_loop), (tr, tr_loop)
+    assert float(res.max()) <= 1e-6 and float(res_loop.max()) <= 1e-6
+    err = (torch.linalg.vector_norm(x - x_loop, dim=(1, 2))
+           / torch.linalg.vector_norm(x_loop, dim=(1, 2)))
+    assert float(err.max()) <= 1e-6, err
+
+
+def test_refused_row_sweep_launch_raises(dev):
+    """A plan forced past the CTAs the card holds resident at once: the
+    runtime refuses the cooperative launch and the wrapper raises, counting
+    nothing; the next launch on the same device runs."""
+    from fdtd2d_tpu_torch.ops import fdfd_rowsweep as rs
+
+    rng = np.random.default_rng(1)
+    G, nr, nc, K = 4, 2, 512, 16
+
+    def c64(*shape):
+        return torch.tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                            dtype=torch.complex64, device=dev) / nc
+
+    Ws, nv, sv, b = c64(G, nr, nc, nc), c64(G, nr, nc), c64(G, nr, nc), c64(G, K, nr, nc)
+    plan = rs.plan_row_sweep(G, nr, nc, K, *fdtd_fused.device_numbers(dev)[::2])
+    too_many = dataclasses.replace(plan, ctas=4 * plan.ctas)
+    exch = torch.empty(too_many.per_launch * 2 * nc * too_many.kp, dtype=torch.complex64,
+                       device=dev)
+    before = trace.counters()
+    with pytest.raises(RuntimeError, match=f"refused {too_many.grid} CTAs"):
+        rs.launch(Ws, nv, sv, b, torch.empty_like(b), exch, too_many, False, 0)
+    assert trace.delta(before, "fdfd.kernels.row_sweeps") == 0
+    x = rs.row_sweep(Ws, nv, sv, b)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(torch.view_as_real(x)).all())
+    assert trace.delta(before, "fdfd.kernels.row_sweeps") == 2

@@ -369,3 +369,98 @@ def test_unbatched_factor_keeps_its_layout():
     assert f1.batch == () and f1.stacked.Ws.shape == (4, 16, 16, 16)
     assert torch.equal(fb.stacked.Ws[:, 0], f1.stacked.Ws)
     assert torch.equal(solve_stacked(fb, b)[0], solve_stacked(f1, b[0]))
+
+
+# -- the row-sweep kernel's plan, and the CPU side of its dispatch ------------------
+
+@pytest.mark.parametrize("case, groups, nr, nc, K, want", [
+    ("1024^2, K = 16", 4, 512, 512, 16, dict(chunks=1, kc=16, kp=16, ctas=33, rows=16)),
+    ("1024^2, K = 1", 4, 512, 512, 1, dict(chunks=1, kc=1, kp=4, ctas=33, rows=16)),
+    ("1024^2, K = 40", 4, 512, 512, 40, dict(chunks=3, kc=14, kp=16, ctas=11, rows=16)),
+    ("odd N, one sublattice", 1, 512, 511, 16, dict(chunks=1, kc=16, kp=16, ctas=128, rows=4)),
+    ("scene batch of 4", 16, 512, 512, 16, dict(chunks=1, kc=16, kp=16, ctas=8, rows=16)),
+    ("dense nc = 1024", 4, 1024, 1024, 16, dict(chunks=1, kc=16, kp=16, ctas=33, rows=4)),
+])
+def test_row_sweep_plan_stays_inside_the_card(case, groups, nr, nc, K, want):
+    """The plan (pure Python) for the shapes the main path and its other
+    callers give: every launch inside an H100's 132 SMs and 232,448 bytes of
+    shared memory a block, every right-hand side in exactly one chunk of at
+    most 16, every CTA owning at least one row, and a ring tile whose
+    micro-tiles the kernel's 256 threads cover."""
+    from fdtd2d_tpu_torch.ops import fdfd_rowsweep as rs
+
+    sms, smem = rs.H100
+    plan = rs.plan_row_sweep(groups, nr, nc, K, sms, smem)
+    assert {k: getattr(plan, k) for k in want} == want, case
+    assert plan.grid <= sms and plan.smem <= smem
+    assert plan.smem == rs.smem_bytes(nc, plan.kp, plan.rows)
+    assert plan.kc <= plan.kp <= 16 and plan.kp in rs.KPADS
+    assert (plan.chunks - 1) * plan.kc < K <= plan.chunks * plan.kc
+    assert 1 <= plan.ctas <= nc and nc // plan.ctas >= 1
+    assert plan.rows in rs.RING_ROWS and plan.rows * plan.kp <= rs.THREADS
+    assert plan.launches * plan.per_launch >= plan.units == groups * plan.chunks
+    assert plan.launches == 1
+
+
+def _old_solve_rows(f, b):
+    """The solve's torch loop as it stood before the row-sweep kernel, on b
+    (..., K, nr, nc), through _solve_sub's layout change."""
+    bl = b.movedim(-3, -1).contiguous()
+    nr = bl.shape[-3]
+    z = f.Ws[..., 0, :, :] @ bl[..., 0, :, :]
+    zs = [z]
+    for r in range(1, nr):
+        z = f.Ws[..., r, :, :] @ (bl[..., r, :, :] - f.nvals[..., r, :, None] * z)
+        zs.append(z)
+    x = zs[-1]
+    xs = [x]
+    for r in range(nr - 2, -1, -1):
+        x = zs[r] - f.Ws[..., r, :, :] @ (f.svals[..., r, :, None] * x)
+        xs.append(x)
+    return torch.stack(xs[::-1], dim=-3).movedim(-1, -3)
+
+
+@pytest.mark.parametrize("N, stacked, dtype", [(32, True, torch.complex64),
+                                               (33, False, torch.complex64),
+                                               (32, True, torch.complex128)])
+def test_solve_rows_on_cpu_takes_the_loop(N, stacked, dtype):
+    """On CPU tensors _solve_rows runs the torch loop: the row-sweep counter
+    stays where it was, and the answer is today's bit for bit (stacked
+    factors, and an odd grid's per-sublattice factors with strided
+    couplings), in complex64 and complex128."""
+    from fdtd2d_tpu_torch.fdfd.direct import _solve_rows
+    from fdtd2d_tpu_torch.utils import trace
+
+    op, _ = _op(N, 17e9, 6, dtype)
+    f = factor_stacked(op).stacked if stacked else factor(op).subs[1]
+    nr, nc = f.Ws.shape[-3], f.Ws.shape[-1]
+    rng = np.random.default_rng(N)
+    b = torch.tensor(rng.standard_normal(f.Ws.shape[:-3] + (3, nr, nc))
+                     + 1j * rng.standard_normal(f.Ws.shape[:-3] + (3, nr, nc))).to(dtype)
+    before = trace.counters()
+    x = _solve_rows(f, b)
+    assert trace.delta(before, "fdfd.kernels.row_sweeps") == 0
+    assert x.shape == b.shape and x.dtype == dtype
+    assert torch.equal(x, _old_solve_rows(f, b))
+
+
+@pytest.mark.parametrize("bad, match", [("cpu", "no row-sweep kernel"),
+                                        ("complex128", "complex64 only"),
+                                        ("strided", "contiguous")])
+def test_row_sweep_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
+    """The kernel's wrapper raises, before any CUDA call, on CPU tensors,
+    complex128 and non-contiguous input: it never falls back to the loop."""
+    from fdtd2d_tpu_torch.ops import fdfd_rowsweep as rs
+    from fdtd2d_tpu_torch.utils import trace
+
+    f = factor_stacked(_op(16, 17e9, 4, torch.complex64)[0]).stacked
+    b = torch.zeros((4, 2, 8, 8), dtype=torch.complex64)
+    Ws, nvals, svals = f.Ws, f.nvals, f.svals
+    if bad == "complex128":
+        Ws, b = Ws.to(torch.complex128), b.to(torch.complex128)
+    elif bad == "strided":
+        b = torch.zeros((4, 8, 8, 2), dtype=torch.complex64).movedim(-1, -3)
+    before = trace.counters()
+    with pytest.raises(ValueError, match=match):
+        rs.row_sweep(Ws, nvals, svals, b)
+    assert trace.delta(before, "fdfd.kernels.row_sweeps") == 0
