@@ -306,6 +306,10 @@ def solve_checkpointed(subs, b) -> torch.Tensor:
     return _solve(DirectFactors(subs=tuple(subs), shape=(Nx, Ny)), b)
 
 
+# the largest grid side at which HPS refinement is measured to converge
+HPS_MEASURED_GRID = 2048
+
+
 class DirectSolver:
     """Build-once / solve-many exact solver with float64 refinement.
 
@@ -356,15 +360,18 @@ class DirectSolver:
                 wmax = torch.stack([s.wmax for s in self.factors.subs]).amax()
             self.compressed_bytes = _comp.compressed_bytes(self.factors)
         elif hps:
-            # the raw complex64 error grows ~10x a grid doubling and
-            # refinement stalls at 2048^2 (fdfd/hps.py): say so before the
-            # factorization is paid for
-            if max(np.shape(eps)) > 1024:
+            # the raw complex64 error grows ~10x a grid doubling (fdfd/hps.py);
+            # refinement is measured to converge up to 2048^2: past it, say so
+            # before the factorization is paid for
+            if max(np.shape(eps)) > HPS_MEASURED_GRID:
                 warnings.warn(
-                    "DirectSolver(hps=True) is past its measured c64 accuracy wall (grid "
-                    f"{tuple(np.shape(eps))}, wall 1024^2: raw error grows ~10x/doubling and "
-                    "refinement stalls at 2048^2) — use checkpointed=True or compressed=True "
-                    "for exact solves at this size", RuntimeWarning, stacklevel=2)
+                    "DirectSolver(hps=True) is past its measured accuracy wall (grid "
+                    f"{tuple(np.shape(eps))}; measured up to {HPS_MEASURED_GRID}^2: on an H100 "
+                    "the hard binary scene at contrast 3, 16 point sources a batch, refined "
+                    "to a true residual of 1e-6 in 2-3 rounds with complex128 eliminations; "
+                    "the raw complex64 error grows ~10x a grid doubling and larger grids are "
+                    "unmeasured) — use checkpointed=True or compressed=True for exact solves "
+                    "at this size", RuntimeWarning, stacklevel=2)
             from fdtd2d_tpu_torch.fdfd import hps as _hps
 
             self.factors = _hps.hps_factor(self.op, m=hps_leaf)

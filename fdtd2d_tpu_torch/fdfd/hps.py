@@ -20,9 +20,12 @@ sweep of ~2 log2(N/2m) batched dense products.
 Accuracy (the JAX package's measurements, hard 50%-duty binary 5x scene,
 17 GHz, m = 8): exact in complex128, while the raw complex64 error grows
 about 10x a grid doubling (the interface Schur systems of the indefinite
-operator are near-resonant), so refinement contracts slowly (about 0.5 a
-round at 1024^2; :class:`DirectSolver` then defaults to 40 rounds) and
-stalls at 2048^2, where the solver warns.
+operator are near-resonant), so its refinement contracts slowly (about 0.5
+a round at 1024^2; :class:`DirectSolver` then defaults to 40 rounds) and
+stalls at 2048^2. The port's wider eliminations (below) move that wall:
+on an H100, 2048^2 sweeps of 16 sources refine to 1e-6 (the benchmark's
+``fdfd-hps`` cell), and :class:`DirectSolver` warns from 4096^2, the first
+size not measured.
 
 Each elimination (the inverse, E and the Schur complement) runs in
 complex128 and its results are stored in the operator's dtype
@@ -43,6 +46,14 @@ values. Each plan's index tensors go to a device once (``_device_plan``).
 The four sublattices factor and solve as one batch on a leading axis of 4:
 the plans need their common shape, so N is even (as for the JAX package,
 whose plans reject the shapes an odd N gives for any leaf above 1).
+
+Spans and counters (utils/trace.py): ``fdfd.hps.factor`` around
+:func:`hps_factor`; in :func:`hps_solve`, ``fdfd.hps.split`` (the parity
+split and the transposes in, the scatter back out), ``fdfd.hps.up`` (the
+leaf fold and the upward merges), ``fdfd.hps.root`` and ``fdfd.hps.down``
+(the downward back-substitution and the gather to grid order); counters
+``fdfd.hps.solves``, one an inner solve, and ``fdfd.hps.levels``, merge
+levels walked, up plus down. None of them synchronizes with the device.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import torch
 
 from fdtd2d_tpu_torch.fdfd.direct import _PARITIES, five_point_coefficients
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator
+from fdtd2d_tpu_torch.utils.trace import count, span
 
 
 # ---------------------------------------------------------------------------
@@ -339,27 +351,33 @@ def _solve_cols(f: SubHPSFactors, plan: HPSPlan, b):
     right-hand side to the root; downward sweep back-substitutes."""
     dp = _device_plan(plan.nr, plan.nc, plan.leaf.m, b.device)
     lead, K = b.shape[:-2], b.shape[-1]
-    b_I = b[..., dp.box_I, :]
-    g_leaf = f.leaf.Y @ b_I
-    bs = b[..., dp.box_R, :] - f.leaf.E.mT @ b_I
+    with span("fdfd.hps.up"):
+        b_I = b[..., dp.box_I, :]
+        g_leaf = f.leaf.Y @ b_I
+        bs = b[..., dp.box_R, :] - f.leaf.E.mT @ b_I
+        gs = []
+        for mp, lev, dm in zip(plan.merges, f.levels, dp.merges):
+            bcat = bs[..., dm.up_src, :, :].reshape(*lead, mp.n_parents, -1, K)
+            b_J = bcat[..., dm.idx_J, :]
+            gs.append(lev.Y @ b_J)
+            bs = bcat[..., dm.idx_R, :] - lev.E.mT @ b_J
+        count("fdfd.hps.levels", len(plan.merges))
 
-    gs = []
-    for mp, lev, dm in zip(plan.merges, f.levels, dp.merges):
-        bcat = bs[..., dm.up_src, :, :].reshape(*lead, mp.n_parents, -1, K)
-        b_J = bcat[..., dm.idx_J, :]
-        gs.append(lev.Y @ b_J)
-        bs = bcat[..., dm.idx_R, :] - lev.E.mT @ b_J
+    with span("fdfd.hps.root"):
+        x_R = f.Yroot @ bs[..., 0, :, :]
 
-    x_R = f.Yroot @ bs[..., 0, :, :]
-    pieces = [x_R]
-    xs = x_R[..., None, :, :]
-    for mp, lev, dm, g in zip(plan.merges[::-1], f.levels[::-1], dp.merges[::-1], gs[::-1]):
-        x_J = g - lev.E @ xs
-        pieces.append(x_J.flatten(-3, -2))
-        xcat = torch.cat([x_J, xs], dim=-2)[..., dm.xcat_perm, :]
-        xs = xcat.reshape(*lead, 2 * mp.n_parents, -1, K)[..., dm.child_src, :, :]
-    pieces.append((g_leaf - f.leaf.E @ xs).flatten(-3, -2))
-    return torch.cat(pieces, dim=-2)[..., dp.out_perm, :]
+    with span("fdfd.hps.down"):
+        pieces = [x_R]
+        xs = x_R[..., None, :, :]
+        for mp, lev, dm, g in zip(plan.merges[::-1], f.levels[::-1], dp.merges[::-1],
+                                  gs[::-1]):
+            x_J = g - lev.E @ xs
+            pieces.append(x_J.flatten(-3, -2))
+            xcat = torch.cat([x_J, xs], dim=-2)[..., dm.xcat_perm, :]
+            xs = xcat.reshape(*lead, 2 * mp.n_parents, -1, K)[..., dm.child_src, :, :]
+        pieces.append((g_leaf - f.leaf.E @ xs).flatten(-3, -2))
+        count("fdfd.hps.levels", len(plan.merges))
+        return torch.cat(pieces, dim=-2)[..., dp.out_perm, :]
 
 
 def hps_solve_sub(f: SubHPSFactors, plan: HPSPlan, b):
@@ -382,9 +400,10 @@ def hps_factor(op: HelmholtzOperator, m: int = 8) -> HPSFactors:
     Nx, Ny = op.shape
     if Nx % 2 or Ny % 2:
         raise ValueError(f"HPS factors need even N, got {(Nx, Ny)}")
-    stacked = [torch.stack(x) for x in zip(*_sub_coefficients(op))]
-    plan = build_plan(*stacked[0].shape[-2:], m)
-    return HPSFactors(stacked=hps_factor_sub(*stacked, plan), shape=op.shape, m=m)
+    with span("fdfd.hps.factor"):
+        stacked = [torch.stack(x) for x in zip(*_sub_coefficients(op))]
+        plan = build_plan(*stacked[0].shape[-2:], m)
+        return HPSFactors(stacked=hps_factor_sub(*stacked, plan), shape=op.shape, m=m)
 
 
 def _tensors(f: SubHPSFactors):
@@ -414,13 +433,17 @@ def predicted_factor_bytes(N: int, m: int = 8, itemsize: int = 8) -> int:
 def hps_solve(f: HPSFactors, b) -> torch.Tensor:
     """x = A^{-1} b from HPS factors; b (Nx, Ny) complex, or (K, Nx, Ny)
     (K right-hand sides against the one factorization)."""
+    count("fdfd.hps.solves")
     Nx, Ny = f.shape
-    bk = b.reshape(-1, Nx, Ny)
-    x = torch.zeros_like(bk)
-    b4 = torch.stack([bk[..., px::2, py::2] for (px, py) in _PARITIES])   # (4, K, nr, nc)
-    plan = build_plan(b4.shape[-2], b4.shape[-1], f.m)
-    x4 = _solve_cols(f.stacked, plan, b4.flatten(-2).movedim(-2, -1).contiguous())
-    x4 = x4.movedim(-1, -2).reshape(b4.shape)
-    for k, (px, py) in enumerate(_PARITIES):
-        x[..., px::2, py::2] = x4[k]
-    return x.reshape(b.shape)
+    with span("fdfd.hps.split"):
+        bk = b.reshape(-1, Nx, Ny)
+        b4 = torch.stack([bk[..., px::2, py::2] for (px, py) in _PARITIES])  # (4, K, nr, nc)
+        plan = build_plan(b4.shape[-2], b4.shape[-1], f.m)
+        cols = b4.flatten(-2).movedim(-2, -1).contiguous()
+    x4 = _solve_cols(f.stacked, plan, cols)
+    with span("fdfd.hps.split"):
+        x4 = x4.movedim(-1, -2).reshape(b4.shape)
+        x = torch.zeros_like(bk)
+        for k, (px, py) in enumerate(_PARITIES):
+            x[..., px::2, py::2] = x4[k]
+        return x.reshape(b.shape)

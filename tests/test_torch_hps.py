@@ -3,6 +3,7 @@ package's, scipy's spsolve and the block-Thomas leg, as tests/test_hps.py
 holds the JAX package's."""
 
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +19,7 @@ from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
 from fdtd2d_tpu_torch.fdfd import hps
 from fdtd2d_tpu_torch.fdfd.direct import DirectSolver, five_point_coefficients, solve_direct
 from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+from fdtd2d_tpu_torch.utils import trace
 
 DX = 1e-3
 
@@ -223,19 +225,93 @@ def test_batched_rhs():
             xs[i].abs().max()))
 
 
-def test_warns_past_accuracy_wall(monkeypatch):
-    """Past 1024^2 DirectSolver(hps=True) warns, before the factorization
-    (stubbed out here) is paid for."""
+def _stub_factor(monkeypatch):
     def stop(*a, **k):
         raise InterruptedError("factor reached")
 
     monkeypatch.setattr(hps, "hps_factor", stop)
+
+
+def test_warns_past_accuracy_wall(monkeypatch):
+    """Past 2048^2, the largest grid measured to refine (on an H100: the
+    hard scene's 16-source batches to 1e-6), DirectSolver(hps=True) warns
+    at 4096^2, before the factorization (stubbed out here) is paid for, and
+    says what was measured."""
+    _stub_factor(monkeypatch)
+    N = 4096
+    eps = np.full((N, N), constants.EPSILON_0)
+    mu = np.full((N, N), constants.MU_0)
+    with pytest.warns(RuntimeWarning, match="accuracy wall") as rec:
+        with pytest.raises(InterruptedError):
+            DirectSolver(eps, mu, DX, DX, 17e9, hps=True, hps_leaf=8, device="cpu")
+    assert "measured up to 2048^2" in str(rec[0].message)
+
+
+def test_no_warning_at_2048(monkeypatch):
+    """2048^2 lies inside the measured wall: the factorization (stubbed out)
+    is reached with no warning."""
+    _stub_factor(monkeypatch)
     N = 2048
     eps = np.full((N, N), constants.EPSILON_0)
     mu = np.full((N, N), constants.MU_0)
-    with pytest.warns(RuntimeWarning, match="accuracy wall"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         with pytest.raises(InterruptedError):
             DirectSolver(eps, mu, DX, DX, 17e9, hps=True, hps_leaf=8, device="cpu")
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_counters_count_each_inner_solve_and_level(N):
+    """A solve_batched call counts one fdfd.hps.solves an inner solve (as
+    many as fdfd.backsolve spans), 2 x the plan's merge levels an inner
+    solve in fdfd.hps.levels, and opens each sweep span once and the split
+    twice an inner solve; the factor counts once."""
+    eps, mu, _ = _hard_scene(N)
+    before = trace.counters()
+    solver = DirectSolver(eps, mu, DX, DX, 17e9, pml_thickness=12, hps=True, device="cpu")
+    assert trace.delta(before, "fdfd.hps.factor") == 1
+    srcs = np.zeros((2, N, N))
+    srcs[0, N // 3, N // 2] = srcs[1, N // 2, N // 4] = 1.0
+    before = trace.counters()
+    _, _, residuals = solver.solve_batched(srcs, refine_target=1e-8)
+    solves = len(residuals) - 1
+    levels = len(hps.build_plan(N // 2, N // 2, 8).merges)
+    assert solves >= 1 and trace.delta(before, "fdfd.backsolve") == solves
+    assert trace.delta(before, "fdfd.hps.solves") == solves
+    assert trace.delta(before, "fdfd.hps.levels") == 2 * levels * solves
+    assert [trace.delta(before, f"fdfd.hps.{k}") for k in ("split", "up", "root", "down")] == [
+        2 * solves, solves, solves, solves]
+    assert trace.delta(before, "fdfd.hps.factor") == 0
+
+
+def test_solve_batched_agrees_with_the_per_sublattice_reference():
+    """solve_batched(hps=True, return_split=True) at 128^2 with leaf 8, on
+    the benchmark's scene and operator: every complex128 iterate within
+    1e-6 of the exact field that the benchmark's per-sublattice reference
+    (portbench/reference/fdfd_sublattice.py) solves, and its true residual
+    with the reference's own operator at most 1e-6."""
+    from portbench.reference import fdfd as ref
+    from portbench.reference.fdfd_sublattice import OneAtATime
+
+    N, omega, pml = 128, 17e9, 40
+    eps, mu, _ = hard_binary_scene(N, seed=7, contrast=3.0)
+    positions = [(40, 71), (64, 64), (90, 37)]
+    srcs = np.zeros((len(positions), N, N))
+    for k, (i, j) in enumerate(positions):
+        srcs[k, i, j] = 1.0
+    solver = DirectSolver(eps, mu, DX, DX, omega, pml_thickness=pml, hps=True, hps_leaf=8,
+                          device="cpu")
+    x, _, trace_ = solver.solve_batched(srcs, refine_target=1e-6, return_split=True)
+    assert x.dtype == torch.complex128 and trace_[-1] <= 1e-6
+    A = ref.operator(eps, mu, DX, DX, omega, pml, 2.0, 3)
+    exact = OneAtATime(A, (N, N), "cpu")
+    b = torch.as_tensor(ref.point_sources((N, N), positions, omega).reshape(-1, N, N))
+    want, want_res = exact.solve(b)
+    assert float(want_res.max()) < 1e-13
+    err = torch.linalg.vector_norm(x - want, dim=(1, 2)) / torch.linalg.vector_norm(want, dim=(1, 2))
+    res = (torch.linalg.vector_norm(b - exact.apply(x), dim=(1, 2))
+           / torch.linalg.vector_norm(b, dim=(1, 2)))
+    assert float(err.max()) <= 1e-6 and float(res.max()) <= 1e-6
 
 
 def test_odd_grid_is_a_value_error():

@@ -1,6 +1,6 @@
 """utils/trace.py: the port's spans appear in a torch.profiler trace, nested
 as the layers nest, and count without one; the FDFD backsolve spans count
-the refinement's inner solves."""
+the refinement's inner solves, and the HPS sweep spans nest inside each."""
 
 import json
 
@@ -98,3 +98,28 @@ def test_without_the_profiler_a_span_only_counts(monkeypatch):
         with trace.span("test.layer"):
             raise ValueError
     assert trace.delta(before, "test.layer") == 3
+
+
+def test_hps_spans_nest_inside_each_backsolve(tmp_path):
+    """With DirectSolver(hps=True) at 64^2: one fdfd.hps.factor span holds
+    the factor; inside each fdfd.backsolve, the parity split opens before
+    the upward sweep and after the downward one, and up, root and down
+    follow each other once."""
+    N = 64
+    eps, mu, _ = hard_binary_scene(N, seed=3, sigma=4.0)
+    srcs = np.zeros((2, N, N))
+    srcs[0, 20, 24] = srcs[1, 30, 17] = 1.0
+    with trace_profile(str(tmp_path)):
+        solver = direct.DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=12, hps=True,
+                                     device="cpu")
+        _, _, residuals = solver.solve_batched(srcs, refine_target=1e-8)
+    spans = _spans(tmp_path)
+    assert len([s for s in spans if s[0] == "fdfd.hps.factor"]) == 1
+    backsolves = [s for s in spans if s[0] == "fdfd.backsolve"]
+    assert len(backsolves) == len(residuals) - 1 >= 1
+    for outer in backsolves:
+        inner = sorted((s for s in spans if s[0].startswith("fdfd.hps.") and _inside(s, outer)),
+                       key=lambda s: s[1])
+        assert [s[0] for s in inner] == ["fdfd.hps.split", "fdfd.hps.up", "fdfd.hps.root",
+                                         "fdfd.hps.down", "fdfd.hps.split"]
+        assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))

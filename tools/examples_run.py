@@ -12,7 +12,7 @@ In order (``--only`` picks some):
 - ``fdtd_video``: 200^2, 1000 steps, 200 frames (``auto`` -> K1 resident);
 - ``rank_study``: 1024^2, complex128;
 - ``direct_large``: three processes, checkpointed (stride 64) and
-  compressed at 2048^2, HPS at 1024^2 (its accuracy wall), each to a true
+  compressed at 2048^2, HPS at 1024^2, each to a true
   residual of 1e-8 with the 8-source sweep;
 - ``inverse_design_decade``: 848^2, 10 frequencies, 100 Adam steps.
 
