@@ -129,6 +129,21 @@ Phases, in order; any failure raises and the script exits non-zero:
     and z or x written once, at 3.35 TB/s; 8 float32 operations a complex
     multiply-add at 67 TFLOP/s); then seven warm ``DirectSolver.solve``
     calls to 1e-6 at 1024^2 on the host clock.
+41. (Runs right after phase 40, on its 1024^2 solver.) The refinement's
+    residual kernels (ops/fdfd_residual.py) on the main path first: the
+    counters over phase 40's seven warm ``solve`` calls and over one
+    ``solve_batched`` of 16 point sources to 1e-6 (the fdfd-hard cell's
+    shape) must read one residual pass a trace entry of the refinement and
+    one update a round, and are printed. Then at 1024^2 and 2048^2 with 16
+    sources, on the hard binary scene's complex128 operator: a residual pass and an update
+    against their plain versions (||r|| within 1e-13 relative, r / ||r||
+    within 2 complex64 units of the last place, the update within 1e-15),
+    one count of each a call; then ms a call of each by CUDA events, in
+    turns with torch's chain that fdfd/refine.py runs off the card (the
+    operator's residual, scaled_norm, divide and cast; x + ||r|| d), beside
+    the floors at 3.35 TB/s: a pass 40 bytes a point for one sweep (x and b
+    read, r / ||r|| written), 72 for two (the kernels' design), the update
+    40 (x and d read, x written).
 13. The checkpointed mode at 512^2, stride 32: its raw complex64 backsolve
     against the stored-factor one (<= 1e-5), its refined residual (<= 1e-6),
     factor and warm-solve times. It runs right after phase 11, while that
@@ -357,7 +372,7 @@ library_ms is null), one with the GCells/s of phase 5, one with phase 9's
 table of K1's modes, one with the times, errors, plan-traffic
 bounds and tile counts of phases 6-9, one with the parity and the cells of
 phases 17-18,
-one with the times, residuals and peak memory of phases 10-15 and 40, one
+one with the times, residuals and peak memory of phases 10-15, 40 and 41, one
 (``invdes``) with the errors, times, iterations, launches and peak memory
 of phases 19-20, one (``tiled_timedomain``) with the parity, probe, times,
 iterations, rounds, launches and peak memory of phases 21-23, one
@@ -668,9 +683,117 @@ def rowsweep_phase(dev, solver, src) -> dict:
               f"{[f'{t:.3f}' for t in ms['plain']]}, floor {floor:.3f} ms "
               f"({100 * floor / best:.1f}% of it), kernel vs loop {err:.3e}")
         del b, x_kernel
-    solve_s = [timed(lambda: solver.solve(src, refine_target=1e-6), dev)[1] for _ in range(7)]
-    out["solve_1024_s"] = solve_s
+    before = trace.counters()
+    solves = [timed(lambda: solver.solve(src, refine_target=1e-6), dev) for _ in range(7)]
+    out["solve_1024_s"] = solve_s = [t for _, t in solves]
+    # solve's trace: one entry a residual pass, then the downcast's residual
+    out["solve_1024_counts"] = main_path_counts(before, [len(tr) - 1 for (_, tr), _ in solves],
+                                                "phase 40's seven warm solve calls")
     done(t0, f"DirectSolver.solve at 1024^2: {[f'{t:.4f}' for t in solve_s]} s")
+    return out
+
+
+def main_path_counts(before: dict, passes: list, what: str) -> dict:
+    """The residual kernels' counters since ``before``, over refinements
+    whose traces held ``passes`` entries (one a residual pass, the last
+    after the last update): they must read one pass an entry and one update
+    a round."""
+    from fdtd2d_tpu_torch.utils import trace
+
+    got = {"residual_passes": trace.delta(before, "fdfd.kernels.residual_passes"),
+           "refine_updates": trace.delta(before, "fdfd.kernels.refine_updates")}
+    want = {"residual_passes": sum(passes), "refine_updates": sum(passes) - len(passes)}
+    if got != want:
+        raise AssertionError(f"{what}: the kernels counted {got}, the refinements ran {want}")
+    print(f"   {what}: {got['residual_passes']} residual passes and {got['refine_updates']} "
+          f"updates by the kernels, one a pass and one a round of the refinements")
+    return got
+
+
+def residual_phase(dev, solver) -> dict:
+    """Phase 41 (right after phase 40, on its 1024^2 solver): the main
+    path's counts over one ``solve_batched`` of 16 sources; then the
+    refinement's residual kernels against their plain versions and torch's
+    chain at 1024^2 and 2048^2, 16 sources; ms a call by CUDA events in
+    turns, beside the floors."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd.refine import scaled_norm
+    from fdtd2d_tpu_torch.ops import fdfd_residual as fr
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+    from fdtd2d_tpu_torch.utils import trace
+
+    t0 = phase("41. the residual kernels on the main path, then at 1024^2 and 2048^2, 16 "
+               "sources, vs torch's chain")
+    N = solver.op64.shape[0]
+    ij = np.random.default_rng(41).integers(N // 4, 3 * N // 4, size=(16, 2))
+    srcs = np.zeros((16, N, N))
+    srcs[np.arange(16), ij[:, 0], ij[:, 1]] = 1.0
+    before = trace.counters()
+    _, res, tr = solver.solve_batched(srcs, refine_target=1e-6)
+    if not float(res.max()) <= 1e-6:
+        raise AssertionError(f"solve_batched of 16 sources at {N}^2: residuals {res}")
+    out = {"solve_batched_1024_counts": main_path_counts(
+        before, [len(tr)], f"solve_batched of 16 sources at {N}^2, trace "
+                           f"{[f'{t:.2e}' for t in tr]}")}
+    del srcs
+    for N in (1024, 2048):
+        eps, mu, _ = hard_binary_scene(N)
+        op = make_operator(eps, mu, 1e-3, 1e-3, 17e9, dtype=torch.complex128, device=dev)
+        g = torch.Generator(device=dev).manual_seed(N)
+        shape = (16, N, N)
+        x = torch.randn(shape, dtype=torch.complex128, device=dev, generator=g)
+        b = torch.randn(shape, dtype=torch.complex128, device=dev, generator=g) * 1e10
+        d = torch.randn(shape, dtype=torch.complex64, device=dev, generator=g)
+        rn = torch.rand(16, dtype=torch.float64, device=dev) * 1e6
+
+        def chain_pass():
+            r = op.residual(b, x)
+            n = scaled_norm(r, batched=True)
+            safe = torch.where(n == 0, torch.ones_like(n), n)
+            return (r / safe[:, None, None]).to(torch.complex64), n
+
+        before = trace.counters()
+        rc, norms = fr.residual_pass(op, b, x)
+        x_upd = fr.update(x.clone(), rn, d)
+        torch.cuda.synchronize(dev)
+        counts = (trace.delta(before, "fdfd.kernels.residual_passes"),
+                  trace.delta(before, "fdfd.kernels.refine_updates"))
+        want_rc, want_norms = fr.residual_pass_reference(op, b, x)
+        norm_err = float(((norms - want_norms).abs() / want_norms).max())
+        spacing = torch.tensor(np.spacing(np.abs(torch.view_as_real(want_rc).cpu().numpy())),
+                               dtype=torch.float64, device=dev)
+        ulps = float(((torch.view_as_real(rc).double() - torch.view_as_real(want_rc).double())
+                      .abs() / spacing).max())
+        want_x = fr.update_reference(x.clone(), rn, d)
+        upd_err = float(((x_upd - want_x).abs() / want_x.abs()).max())
+        if counts != (1, 1) or not (norm_err <= 1e-13 and ulps <= 2.0 and upd_err <= 1e-15):
+            raise AssertionError(f"residual kernels at {N}^2: counts {counts}, norms {norm_err:.3e}, "
+                                 f"r / ||r|| {ulps} ulps, update {upd_err:.3e} against plain")
+        del rc, norms, want_rc, want_norms, spacing, x_upd, want_x
+        runs = {"kernel": lambda: fr.residual_pass(op, b, x),
+                "chain": chain_pass,
+                "update_kernel": lambda: fr.update(x, rn, d),
+                "update_chain": lambda: x + rn[:, None, None] * d.to(torch.complex128)}
+        ms = {k: [] for k in runs}
+        for name in ("chain", "kernel", "kernel", "chain",
+                     "update_chain", "update_kernel", "update_kernel", "update_chain"):
+            ms[name].append(events_ms(runs[name], 10 if "kernel" in name else 3))
+        points = 16 * N * N
+        floors = {"pass_one_sweep": points * 40 / HBM_BYTES_S * 1e3,
+                  "pass_two_sweeps": points * 72 / HBM_BYTES_S * 1e3,
+                  "update": points * 40 / HBM_BYTES_S * 1e3}
+        out[f"{N}"] = {"ms": ms, "floor_ms": floors, "norm_rel_err": norm_err,
+                       "rhs_ulps": ulps, "update_rel_err": upd_err,
+                       "pass_share_of_two_sweep_floor": floors["pass_two_sweeps"] / min(ms["kernel"]),
+                       "update_share_of_floor": floors["update"] / min(ms["update_kernel"])}
+        print(f"   {N}^2, K = 16: pass kernel {[f'{t:.3f}' for t in ms['kernel']]} ms, chain "
+              f"{[f'{t:.3f}' for t in ms['chain']]}; floors {floors['pass_one_sweep']:.3f} (one "
+              f"sweep) / {floors['pass_two_sweeps']:.3f} (two); update kernel "
+              f"{[f'{t:.3f}' for t in ms['update_kernel']]}, chain "
+              f"{[f'{t:.3f}' for t in ms['update_chain']]}, floor {floors['update']:.3f}")
+        del op, x, b, d, rn
+        torch.cuda.empty_cache()
+    done(t0)
     return out
 
 
@@ -820,6 +943,7 @@ def fdfd_phases(dev) -> dict:
              f"{[f'{t:.2e}' for t in trace2]}; batched {B}: {batched_s / B:.4f} s a source, "
              f"worst {worst:.3e}, vs singles {max(singles):.3e}, peak {batched_peak:.3f} GB")
     out["rowsweep1024"] = rowsweep_phase(dev, solver2, src2)
+    out["residual"] = residual_phase(dev, solver2)
     del solver2
     torch.cuda.empty_cache()
 
@@ -2170,7 +2294,9 @@ def main() -> int:
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             kernel_name = next((k for k in ("h_update", "e_update", "resident_steps",
-                                            "ttiled_sweep", "row_sweep") if k in line),
+                                            "ttiled_sweep", "row_sweep", "residual_sweep",
+                                            "residual_norm_sweep", "residual_combine",
+                                            "refine_update") if k in line),
                                line.strip())
         elif "registers" in line or "spill" in line:
             print(f"   ptxas {kernel_name}: {line.strip()}")

@@ -17,6 +17,14 @@ Each round reads one host value (the residual norm, a vector of them when
 batched), which the stopping rule needs. Spans (utils/trace.py):
 ``fdfd.refine.residual`` around each residual pass, ``fdfd.refine.read``
 around each host read of the norms, where the host waits for the device.
+
+On the card the residual pass, the norm of b and the update run as
+hand-written kernels (ops/fdfd_residual.py) wherever its rule holds, which
+each call takes once: contiguous complex128 fields of an unstacked
+complex128 operator, complex64 inner solves; the update then writes the
+refinement's own iterate in place.
+Every other input (CPU tensors, stacked operators, complex64 operators) takes
+torch's chain below.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from fdtd2d_tpu_torch.ops import fdfd_residual
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator
 from fdtd2d_tpu_torch.utils.trace import span
 
@@ -57,15 +66,30 @@ class BatchRefineResult(NamedTuple):
     trace: List[float]             # MAX-over-batch relative residual per round
 
 
-def _residual_step(op64: HelmholtzOperator, b, x, inner_dtype, batched=False):
-    """(r/||r|| as inner_dtype, ||r|| float64 on the device)."""
+def _residual_step(op64: HelmholtzOperator, b, x, inner_dtype, batched, kernel):
+    """(r/||r|| as inner_dtype, ||r|| float64 on the device); by the
+    kernels where ``kernel`` (ops/fdfd_residual.py's rule) holds."""
     with span("fdfd.refine.residual"):
+        if kernel:
+            return fdfd_residual.residual_pass(op64, b, x)
         r = op64.residual(b, x)
         rn = scaled_norm(r, batched)
         safe = torch.where(rn == 0, torch.ones_like(rn), rn)
         if batched:
             safe = safe[:, None, None]
         return (r / safe).to(inner_dtype), rn
+
+
+def _rhs_norm(b, batched, kernel):
+    """||b|| float64 on the device, per sample when batched."""
+    return fdfd_residual.norms(b) if kernel else scaled_norm(b, batched)
+
+
+def _update(x, rn, d, batched, kernel):
+    """x + ||r|| d: in place on ``x`` by the kernel where ``kernel`` holds."""
+    if kernel:
+        return fdfd_residual.update(x, rn, d)
+    return x + (rn[:, None, None] if batched else rn) * d.to(torch.complex128)
 
 
 def _read(norms) -> np.ndarray:
@@ -99,10 +123,11 @@ def refine(
     ``inner_solve``: any complex64 solver taking a unit-norm (Nx, Ny) RHS
     and returning an approximate correction. Stops early when the residual
     stagnates (``rel >= 0.9 * prev``), so a mis-tuned inner solve never loops
-    forever.
+    forever. A supplied ``x0`` is copied, never written.
     """
-    x = torch.zeros_like(b) if x0 is None else x0
-    bn = float(_read(scaled_norm(b)))
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    kernel = fdfd_residual.takes_kernel(op64, b, x, inner_dtype, batched=False)
+    bn = float(_read(_rhs_norm(b, False, kernel)))
     if bn == 0.0:
         return RefineResult(x, 0.0, 0, [0.0])
 
@@ -110,16 +135,16 @@ def refine(
     prev = float("inf")
     rounds = 0
     for k in range(max_rounds):
-        rc, rn = _residual_step(op64, b, x, inner_dtype)
+        rc, rn = _residual_step(op64, b, x, inner_dtype, False, kernel)
         rel = float(_read(rn)) / bn
         trace.append(rel)
         if rel <= target or rel >= 0.9 * prev:  # converged or stagnated
             break
         prev = rel
-        x = x + rn * inner_solve(rc).to(torch.complex128)
+        x = _update(x, rn, inner_solve(rc), False, kernel)
         rounds = k + 1
     else:
-        _, rn = _residual_step(op64, b, x, inner_dtype)
+        _, rn = _residual_step(op64, b, x, inner_dtype, False, kernel)
         trace.append(float(_read(rn)) / bn)
     return RefineResult(x, trace[-1], rounds, trace)
 
@@ -145,24 +170,25 @@ def refine_batched(
         raise ValueError(f"refine_batched wants (B, Nx, Ny) fields, got {tuple(b.shape)}")
     B = b.shape[0]
     x = torch.zeros_like(b)
-    bn = _read(scaled_norm(b, batched=True))
+    kernel = fdfd_residual.takes_kernel(op64, b, x, inner_dtype, batched=True)
+    bn = _read(_rhs_norm(b, True, kernel))
     bn_safe = np.where(bn == 0.0, 1.0, bn)
 
     trace: List[float] = []
     prev = float("inf")
     rounds = 0
     for k in range(max_rounds):
-        rc, rn = _residual_step(op64, b, x, inner_dtype, batched=True)
+        rc, rn = _residual_step(op64, b, x, inner_dtype, True, kernel)
         rel = _read(rn) / bn_safe
         worst = float(rel.max()) if B else 0.0
         trace.append(worst)
         if worst <= target or worst >= 0.9 * prev:
             break
         prev = worst
-        x = x + rn[:, None, None] * inner_solve(rc).to(torch.complex128)
+        x = _update(x, rn, inner_solve(rc), True, kernel)
         rounds = k + 1
     else:
-        _, rn = _residual_step(op64, b, x, inner_dtype, batched=True)
+        _, rn = _residual_step(op64, b, x, inner_dtype, True, kernel)
         rel = _read(rn) / bn_safe
         trace.append(float(rel.max()) if B else 0.0)
     # ``rel`` is the residual of the returned x: every exit reads it last

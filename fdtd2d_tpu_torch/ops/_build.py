@@ -132,6 +132,16 @@ def load() -> ctypes.CDLL:
         lib.fdfd_rowsweep_run.restype = i
         lib.fdfd_rowsweep_layout.argtypes = [i, i, i, ctypes.POINTER(i)]  # kp nc tr out[3]
         lib.fdfd_rowsweep_layout.restype = i
+        lib.fdfd_residual_pass.argtypes = [p, p, p, p, p, p,     # x b eps imu isr isc
+                                           p, p, p,              # omega inv_2dx inv_2dy
+                                           p, p, p,              # partials norms out
+                                           i, i, i,              # B Nx Ny
+                                           p]                    # stream
+        lib.fdfd_residual_pass.restype = i
+        lib.fdfd_residual_norms.argtypes = [p, p, p, i, i, i, p]  # b partials norms B Nx Ny stream
+        lib.fdfd_residual_norms.restype = i
+        lib.fdfd_refine_update.argtypes = [p, p, p, i, i, p]   # x d norms B per_sample stream
+        lib.fdfd_refine_update.restype = i
         lib.fdtd_error_string.argtypes = [i]
         lib.fdtd_error_string.restype = ctypes.c_char_p
         _lib = lib

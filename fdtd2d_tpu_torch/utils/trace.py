@@ -19,7 +19,10 @@ of whichever FDTD kernel ran, and per kernel ``fdtd.kernels.k1``,
 ``fdfd.solve``, ``fdfd.solve_batched``, ``fdfd.backsolve`` (fdfd/direct.py);
 ``fdfd.refine.residual``, ``fdfd.refine.read`` (fdfd/refine.py);
 ``fdfd.kernels.row_sweeps``, the launches of the backsolve's row-sweep
-kernel, one a direction (ops/fdfd_rowsweep.py); ``fdfd.hps.factor``,
+kernel, one a direction (ops/fdfd_rowsweep.py);
+``fdfd.kernels.residual_passes`` and ``fdfd.kernels.refine_updates``, the
+refinement's residual passes and updates that ran as kernels
+(ops/fdfd_residual.py); ``fdfd.hps.factor``,
 ``fdfd.hps.split``, ``fdfd.hps.up``, ``fdfd.hps.root``, ``fdfd.hps.down``
 and the counters ``fdfd.hps.solves`` (one an inner solve) and
 ``fdfd.hps.levels`` (merge levels walked, up plus down) (fdfd/hps.py).

@@ -1,6 +1,6 @@
-"""K1 (both modes), K2 (single-device and block mode), K3 mode and the
-direct backsolve's row sweep on the card: the CUDA kernels against their
-plain versions; and the FDFD solvers
+"""K1 (both modes), K2 (single-device and block mode), K3 mode, the direct
+backsolve's row sweep and the refinement's residual kernels on the card: the
+CUDA kernels against their plain versions; and the FDFD solvers
 (stored, compressed and HPS direct factors, FGMRES) on the card against
 complex128 on the CPU, and the HPS sweep of examples/direct_large.py at
 1024^2.
@@ -741,3 +741,219 @@ def test_refused_row_sweep_launch_raises(dev):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(torch.view_as_real(x)).all())
     assert trace.delta(before, "fdfd.kernels.row_sweeps") == 2
+
+
+# -- the refinement's residual kernels (ops/fdfd_residual.py) ------------------------
+
+def _residual_op(dev, N, M):
+    """The complex128 operator of the hard binary scene at N^2, else of a
+    random medium at N x M (PML up to a third of the smaller side)."""
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator
+
+    if N == M and N >= 64:
+        eps, mu, _ = _hard(N)
+    else:
+        rng = np.random.default_rng(N * 7 + M)
+        eps = rng.uniform(1.0, 4.0, (N, M)) * constants.EPSILON_0
+        mu = np.full((N, M), constants.MU_0)
+    return make_operator(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=min(40, N // 3, M // 3),
+                         dtype=torch.complex128, device=dev)
+
+
+def _c128(shape, dev, seed, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, dtype=torch.complex128, device=dev, generator=g) * scale
+
+
+def _c64_ulps(got, want):
+    """Largest difference of two complex64 tensors in units of the last place
+    of ``want``'s parts."""
+    g, w = torch.view_as_real(got).double(), torch.view_as_real(want).double()
+    spacing = torch.tensor(np.spacing(np.abs(torch.view_as_real(want).cpu().numpy())),
+                           dtype=torch.float64, device=want.device)
+    return float(((g - w).abs() / spacing).max())
+
+
+@pytest.mark.parametrize("N, M, B", [(1024, 1024, 16), (2048, 2048, 16), (203, 157, 1),
+                                     (203, 157, None), (6, 6, None), (6, 6, 3)])
+def test_residual_kernel_matches_plain(dev, N, M, B):
+    """One residual pass by the kernels against the plain version: ||r||
+    within 1e-13 relative, r / ||r|| within 2 complex64 units of the last
+    place. With b = A x + 1e-8 noise, where r is all rounding-sensitive
+    cancellation, r / ||r|| equals the operator's residual scaled by the
+    kernels' own norm bit for bit: r is the chain's r."""
+    from fdtd2d_tpu_torch.ops import fdfd_residual as fr
+
+    op = _residual_op(dev, N, M)
+    shape = (N, M) if B is None else (B, N, M)
+    x = _c128(shape, dev, 1)
+    noise = _c128(shape, dev, 2, 1e10)
+    for b in (noise, op.apply(x) + 1e-8 * noise):
+        before = trace.counters()
+        rc, rn = fr.residual_pass(op, b, x)
+        torch.cuda.synchronize()
+        assert trace.delta(before, "fdfd.kernels.residual_passes") == 1
+        want_rc, want_rn = fr.residual_pass_reference(op, b, x)
+        assert rn.shape == want_rn.shape == shape[:-2] and rc.dtype == torch.complex64
+        assert float(((rn - want_rn).abs() / want_rn).max()) <= 1e-13
+        assert _c64_ulps(rc, want_rc) <= 2.0
+        inv = 1.0 / rn
+        assert torch.equal(rc, (op.residual(b, x) * inv[..., None, None]).to(torch.complex64))
+        nb = fr.norms(b)
+        assert float(((nb - fr.norms_reference(b)).abs() / nb).max()) <= 1e-13
+
+
+def test_residual_norms_repeat_bit_for_bit(dev):
+    """No atomics: two passes over the same input give the same bits."""
+    from fdtd2d_tpu_torch.ops import fdfd_residual as fr
+
+    op = _residual_op(dev, 1024, 1024)
+    x, b = _c128((16, 1024, 1024), dev, 3), _c128((16, 1024, 1024), dev, 4, 1e10)
+    rc1, rn1 = fr.residual_pass(op, b, x)
+    rc2, rn2 = fr.residual_pass(op, b, x)
+    assert torch.equal(rn1, rn2) and torch.equal(rc1, rc2)
+    assert torch.equal(fr.norms(b), fr.norms(b))
+
+
+@pytest.mark.parametrize("shape", [(16, 1024, 1024), (203, 157)])
+def test_update_kernel_matches_plain(dev, shape):
+    """x += ||r|| d in place, within 1e-15 relative of the plain update (the
+    same two roundings a part: bit for bit on an H100)."""
+    from fdtd2d_tpu_torch.ops import fdfd_residual as fr
+
+    x = _c128(shape, dev, 5)
+    d = _c128(shape, dev, 6).to(torch.complex64)
+    rn = torch.rand(shape[:-2], dtype=torch.float64, device=dev) * 1e6
+    got = x.clone()
+    before = trace.counters()
+    assert fr.update(got, rn, d) is got
+    assert trace.delta(before, "fdfd.kernels.refine_updates") == 1
+    want = fr.update_reference(x.clone(), rn, d)
+    assert float(((got - want).abs() / want.abs().clamp_min(1e-300)).max()) <= 1e-15
+
+
+@pytest.mark.parametrize("mode", ["block-Thomas 1024", "hps 512"])
+def test_solve_batched_takes_the_residual_kernels(dev, monkeypatch, mode):
+    """DirectSolver.solve_batched with the kernels against torch's chain in
+    their place: the same rounds; one residual pass a round plus one and one
+    update a round by the kernels, none by the chain; the kernel path's
+    residuals within 1e-12 of the chain's residual of the same iterates. The
+    two paths' iterates differ by ~1e-18 of their norm: the norms sum in
+    another order, which moves a rare complex64 rounding of r / ||r||."""
+    from fdtd2d_tpu_torch.fdfd import direct
+    from fdtd2d_tpu_torch.ops import fdfd_residual as fr
+
+    N, B = (1024, 16) if mode.startswith("block") else (512, 8)
+    eps, mu = _bench_scene(N)
+    solver = direct.DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, hps=mode.startswith("hps"),
+                                 device=dev)
+    ij = np.random.default_rng(0).integers(N // 4, 3 * N // 4, size=(B, 2))
+    srcs = np.zeros((B, N, N))
+    srcs[np.arange(B), ij[:, 0], ij[:, 1]] = 1.0
+    before = trace.counters()
+    x, res, tr = solver.solve_batched(srcs, refine_target=1e-6, return_split=True)
+    rounds = len(tr) - 1
+    assert rounds >= 1 and float(res.max()) <= 1e-6
+    assert trace.delta(before, "fdfd.kernels.residual_passes") == rounds + 1
+    assert trace.delta(before, "fdfd.kernels.refine_updates") == rounds
+    b64 = solver._rhs(srcs, None)
+    chain_res = (torch.linalg.vector_norm(solver.op64.residual(b64, x), dim=(1, 2))
+                 / torch.linalg.vector_norm(b64, dim=(1, 2))).cpu().numpy()
+    assert np.max(np.abs(res - chain_res) / chain_res) <= 1e-12
+    monkeypatch.setattr(fr, "takes_kernel", lambda *args, **kwargs: False)
+    before = trace.counters()
+    x_c, res_c, tr_c = solver.solve_batched(srcs, refine_target=1e-6, return_split=True)
+    assert trace.delta(before, "fdfd.kernels.residual_passes") == 0
+    assert trace.delta(before, "fdfd.kernels.refine_updates") == 0
+    assert len(tr_c) == len(tr), (tr, tr_c)
+    err = (torch.linalg.vector_norm(x - x_c, dim=(1, 2))
+           / torch.linalg.vector_norm(x_c, dim=(1, 2)))
+    assert float(err.max()) <= 1e-15, err
+
+
+def _bench_scene(N):
+    """eps and mu of the benchmark's hard binary scene at N^2."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+
+    eps, mu, _ = hard_binary_scene(N)
+    return eps, mu
+
+
+def test_refine_on_card_leaves_x0_and_counts(dev):
+    """refine with a supplied x0 on the card: the kernels run (a pass a round
+    plus one, an update a round) and x0 comes back unmodified."""
+    from fdtd2d_tpu_torch.fdfd import direct
+    from fdtd2d_tpu_torch.fdfd.refine import refine
+
+    N = 256
+    eps, mu = _bench_scene(N)
+    solver = direct.DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, device=dev)
+    b = torch.zeros((N, N), dtype=torch.complex128, device=dev)
+    b[N // 2, N // 3] = -1j * 17e9
+    x0 = 1e-3 * _c128((N, N), dev, 7)
+    kept = x0.clone()
+    before = trace.counters()
+    out = refine(solver.op64, b, solver._solve, target=1e-9, x0=x0)
+    assert out.rounds >= 1 and out.relative_residual <= 1e-9
+    assert trace.delta(before, "fdfd.kernels.residual_passes") == len(out.trace)
+    assert trace.delta(before, "fdfd.kernels.refine_updates") == out.rounds
+    assert torch.equal(x0, kept)
+
+
+@pytest.mark.parametrize("case", ["stacked operator", "complex64 operator",
+                                  "non-contiguous field", "patch-stacked operator"])
+def test_residual_rule_sends_the_rest_to_the_chain_on_card(dev, case):
+    """On the card, what lies outside the rule runs torch's chain: the rule
+    refuses it, no kernel counter moves, and the step returns the chain's
+    values."""
+    from fdtd2d_tpu_torch.fdfd.refine import _residual_step, scaled_norm
+    from fdtd2d_tpu_torch.ops import fdfd_residual as fr
+    from fdtd2d_tpu_torch.fdfd.tiled import stack_patch_operators
+    from fdtd2d_tpu_torch.ops.helmholtz import make_operator, stack_operators
+
+    rng = np.random.default_rng(8)
+    eps = rng.uniform(1.0, 4.0, (24, 24)) * constants.EPSILON_0
+    mu = np.full((24, 24), constants.MU_0)
+
+    def op_at(w, dtype=torch.complex128):
+        return make_operator(eps, mu, 1e-3, 1e-3, w, pml_thickness=4, dtype=dtype, device=dev)
+
+    op, shape = op_at(17e9), (3, 24, 24)
+    if case == "stacked operator":
+        op = stack_operators([op_at(15e9), op_at(17e9), op_at(19e9)])
+    elif case == "complex64 operator":
+        op = op_at(17e9, torch.complex64)
+    elif case == "patch-stacked operator":
+        op = stack_patch_operators(eps, mu, np.array([[0, 0], [8, 8], [12, 12]]), 12, 1e-3,
+                                   1e-3, 17e9, 2, torch.complex128, device=dev)
+        shape = (3, 12, 12)
+    x, b = _c128(shape, dev, 9), _c128(shape, dev, 10, 1e10)
+    if case == "non-contiguous field":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    kernel = fr.takes_kernel(op, b, x, torch.complex64, True)
+    assert not kernel
+    before = trace.counters()
+    rc, rn = _residual_step(op, b, x, torch.complex64, True, kernel)
+    torch.cuda.synchronize()
+    assert trace.delta(before, "fdfd.kernels.residual_passes") == 0
+    r = op.residual(b, x)
+    want_rn = scaled_norm(r, batched=True)
+    assert torch.equal(rn, want_rn)
+    assert torch.equal(rc, (r / want_rn[:, None, None]).to(torch.complex64))
+
+
+@pytest.mark.parametrize("case", ["complex64 x", "non-contiguous b"])
+def test_residual_wrapper_raises_on_card(dev, case):
+    """The wrapper refuses what the kernels do not take, before a launch."""
+    from fdtd2d_tpu_torch.ops import fdfd_residual as fr
+
+    op = _residual_op(dev, 24, 24)
+    x, b = _c128((2, 24, 24), dev, 11), _c128((2, 24, 24), dev, 12)
+    if case == "complex64 x":
+        x = x.to(torch.complex64)
+    else:
+        b = b.transpose(1, 2).contiguous().transpose(1, 2)
+    before = trace.counters()
+    with pytest.raises(ValueError, match="complex128|contiguous"):
+        fr.residual_pass(op, b, x)
+    assert trace.delta(before, "fdfd.kernels.residual_passes") == 0
