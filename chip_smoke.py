@@ -1256,15 +1256,15 @@ def timedomain_phase(dev, profile_fdfd, t_script: float, budget_s: float = 420.0
     the script past ``budget_s`` (the phases after it take about 600 s more;
     the 4096^2 solve is then tools/profile_fdfd.py's ``--paths timedomain
     --size 4096``)."""
-    from fdtd2d_tpu_torch.fdfd.timedomain import (TimeDomainSolver, _split_sub,
-                                                  build_wave_bundle, wave_run)
+    from fdtd2d_tpu_torch.fdfd.direct import split_sublattices
+    from fdtd2d_tpu_torch.fdfd.timedomain import TimeDomainSolver, build_wave_bundle, wave_run
 
     t0 = phase("22. time domain: a 96^2 wave run vs the CPU; ms a wave step at 4096^2; "
                "timedomain4096 (transits 2.5, refined to 1e-6)")
     omega, dx, out = 17e9, 1e-3, {}
     eps, mu, src = profile_fdfd.block_scene(96)
     b = torch.tensor(-1j * omega * src, dtype=torch.complex64)
-    b_sub = _split_sub(b / torch.linalg.vector_norm(b))
+    b_sub = torch.stack(split_sublattices(b / torch.linalg.vector_norm(b)))
     x = {str(where): wave_run(build_wave_bundle(eps, mu, dx, dx, omega, device=where),
                               b_sub.to(where)).cpu() for where in (dev, "cpu")}
     out["wave_run_96_rel_err"] = complex_rel_err(*x.values())

@@ -30,7 +30,7 @@ import torch
 
 from fdtd2d_tpu_torch.apps._common import cli, timed
 from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
-from fdtd2d_tpu_torch.fdfd.direct import five_point_coefficients
+from fdtd2d_tpu_torch.fdfd.direct import five_point_coefficients, split_sublattices
 from fdtd2d_tpu_torch.ops.helmholtz import make_operator
 
 SAMPLE_AT = (1, 2, 4, 8, 16, 32, 64, 128, 256, 511)
@@ -70,7 +70,8 @@ def run(N: int = 1024, *, device="cuda", out=None) -> dict:
         eps, mu, _ = hard_binary_scene(N, seed=SEED)
         op = make_operator(eps, mu, DX, DX, OMEGA, pml_thickness=40, dtype=torch.complex128,
                            device=device)
-        d, e, w, s, n = (a[0::2, 0::2] for a in five_point_coefficients(op))  # sublattice (0, 0)
+        # sublattice (0, 0)
+        d, e, w, s, n = (split_sublattices(a)[0] for a in five_point_coefficients(op))
         nr, nc = d.shape
         print(f"sublattice rows={nr} cols={nc}")
         samples = {}

@@ -58,7 +58,24 @@ from fdtd2d_tpu_torch.ops import fdfd_rowsweep
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator, make_operator
 from fdtd2d_tpu_torch.utils.trace import span
 
+# the sublattices' one order: (i mod 2, j mod 2) of their points
 _PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def split_sublattices(a):
+    """The four (i mod 2, j mod 2) sublattices of ``a`` (a tensor or a numpy
+    array, the grid its last two axes) as views, in ``_PARITIES`` order. A
+    list: an odd grid's sublattices differ in shape, and stacked callers
+    stack it."""
+    return [a[..., px::2, py::2] for (px, py) in _PARITIES]
+
+
+def merge_sublattices(parts, out):
+    """Write the four sublattices ``parts`` (in ``_PARITIES`` order) back
+    into the grid ``out``, and return ``out``."""
+    for sub, part in zip(split_sublattices(out), parts):
+        sub[...] = part
+    return out
 
 
 def five_point_coefficients(op: HelmholtzOperator):
@@ -232,22 +249,17 @@ def _solve(factors, b):
     or K, for each factor set)."""
     Nx, Ny = factors.shape
     bk = b.reshape(factors.batch + (-1, Nx, Ny))
-    x = torch.zeros_like(bk)
     if isinstance(factors, StackedFactors):
-        b4 = torch.stack([bk[..., px::2, py::2] for (px, py) in _PARITIES])
-        x4 = _solve_sub(factors.stacked, b4)
-        for k, (px, py) in enumerate(_PARITIES):
-            x[..., px::2, py::2] = x4[k]
+        parts = _solve_sub(factors.stacked, torch.stack(split_sublattices(bk)))
     else:
-        for (px, py), fs in zip(_PARITIES, factors.subs):
-            x[..., px::2, py::2] = _solve_sub(fs, bk[..., px::2, py::2])
-    return x.reshape(b.shape)
+        parts = (_solve_sub(fs, bs) for fs, bs in zip(factors.subs, split_sublattices(bk)))
+    return merge_sublattices(parts, torch.zeros_like(bk)).reshape(b.shape)
 
 
 def _sublattice_coefficients(op: HelmholtzOperator):
     """Per parity, the (d, e, w, n, s) coefficients of that sublattice."""
     d, e, w, s, n = five_point_coefficients(op)
-    return [tuple(a[..., px::2, py::2] for a in (d, e, w, n, s)) for (px, py) in _PARITIES]
+    return list(zip(*(split_sublattices(a) for a in (d, e, w, n, s))))
 
 
 def factor(op: HelmholtzOperator) -> DirectFactors:

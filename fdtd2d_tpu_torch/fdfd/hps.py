@@ -65,7 +65,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from fdtd2d_tpu_torch.fdfd.direct import _PARITIES, five_point_coefficients
+from fdtd2d_tpu_torch.fdfd.direct import (five_point_coefficients, merge_sublattices,
+                                          split_sublattices)
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator
 from fdtd2d_tpu_torch.utils.trace import count, span
 
@@ -388,10 +389,11 @@ def hps_solve_sub(f: SubHPSFactors, plan: HPSPlan, b):
 
 
 def _sub_coefficients(op: HelmholtzOperator):
-    """Per parity, the (d, E_col, E_row) coefficients of that sublattice (w
-    and n are the symmetric partners of e and s, equal to f32 rounding)."""
+    """The (d, E_col, E_row) coefficients, each the four sublattices stacked
+    on a leading axis (w and n are the symmetric partners of e and s, equal
+    to f32 rounding)."""
     d, e, _, s, _ = five_point_coefficients(op)
-    return [tuple(a[..., px::2, py::2] for a in (d, e, s)) for (px, py) in _PARITIES]
+    return [torch.stack(split_sublattices(a)) for a in (d, e, s)]
 
 
 def hps_factor(op: HelmholtzOperator, m: int = 8) -> HPSFactors:
@@ -401,7 +403,7 @@ def hps_factor(op: HelmholtzOperator, m: int = 8) -> HPSFactors:
     if Nx % 2 or Ny % 2:
         raise ValueError(f"HPS factors need even N, got {(Nx, Ny)}")
     with span("fdfd.hps.factor"):
-        stacked = [torch.stack(x) for x in zip(*_sub_coefficients(op))]
+        stacked = _sub_coefficients(op)
         plan = build_plan(*stacked[0].shape[-2:], m)
         return HPSFactors(stacked=hps_factor_sub(*stacked, plan), shape=op.shape, m=m)
 
@@ -437,13 +439,10 @@ def hps_solve(f: HPSFactors, b) -> torch.Tensor:
     Nx, Ny = f.shape
     with span("fdfd.hps.split"):
         bk = b.reshape(-1, Nx, Ny)
-        b4 = torch.stack([bk[..., px::2, py::2] for (px, py) in _PARITIES])  # (4, K, nr, nc)
+        b4 = torch.stack(split_sublattices(bk))  # (4, K, nr, nc)
         plan = build_plan(b4.shape[-2], b4.shape[-1], f.m)
         cols = b4.flatten(-2).movedim(-2, -1).contiguous()
     x4 = _solve_cols(f.stacked, plan, cols)
     with span("fdfd.hps.split"):
         x4 = x4.movedim(-1, -2).reshape(b4.shape)
-        x = torch.zeros_like(bk)
-        for k, (px, py) in enumerate(_PARITIES):
-            x[..., px::2, py::2] = x4[k]
-        return x.reshape(b.shape)
+        return merge_sublattices(x4, torch.zeros_like(bk)).reshape(b.shape)

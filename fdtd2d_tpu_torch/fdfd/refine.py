@@ -13,10 +13,12 @@ residuals. The inner right-hand side has unit norm, so the complex64 solver
 always sees O(1) data. A result reports the TRUE float64 residual of the
 array it returns.
 
-Each round reads one host value (the residual norm, a vector of them when
-batched), which the stopping rule needs. Spans (utils/trace.py):
-``fdfd.refine.residual`` around each residual pass, ``fdfd.refine.read``
-around each host read of the norms, where the host waits for the device.
+The one loop, :func:`refine_batched`, runs on (B, Nx, Ny) batches;
+:func:`refine` is a batch of one. Each round reads one host value, the
+vector of the residuals' norms, which the stopping rule needs. Spans
+(utils/trace.py): ``fdfd.refine.residual`` around each residual pass,
+``fdfd.refine.read`` around each host read of the norms, where the host
+waits for the device.
 
 On the card the residual pass, the norm of b and the update run as
 hand-written kernels (ops/fdfd_residual.py) wherever its rule holds, which
@@ -66,30 +68,29 @@ class BatchRefineResult(NamedTuple):
     trace: List[float]             # MAX-over-batch relative residual per round
 
 
-def _residual_step(op64: HelmholtzOperator, b, x, inner_dtype, batched, kernel):
-    """(r/||r|| as inner_dtype, ||r|| float64 on the device); by the
-    kernels where ``kernel`` (ops/fdfd_residual.py's rule) holds."""
+def _residual_step(op64: HelmholtzOperator, b, x, inner_dtype, kernel):
+    """(r/||r|| as inner_dtype, ||r|| (B,) float64 on the device) of a (B,
+    Nx, Ny) batch; by the kernels where ``kernel`` (ops/fdfd_residual.py's
+    rule) holds."""
     with span("fdfd.refine.residual"):
         if kernel:
             return fdfd_residual.residual_pass(op64, b, x)
         r = op64.residual(b, x)
-        rn = scaled_norm(r, batched)
+        rn = scaled_norm(r, True)
         safe = torch.where(rn == 0, torch.ones_like(rn), rn)
-        if batched:
-            safe = safe[:, None, None]
-        return (r / safe).to(inner_dtype), rn
+        return (r / safe[:, None, None]).to(inner_dtype), rn
 
 
-def _rhs_norm(b, batched, kernel):
-    """||b|| float64 on the device, per sample when batched."""
-    return fdfd_residual.norms(b) if kernel else scaled_norm(b, batched)
+def _rhs_norm(b, kernel):
+    """||b|| per sample, (B,) float64 on the device."""
+    return fdfd_residual.norms(b) if kernel else scaled_norm(b, True)
 
 
-def _update(x, rn, d, batched, kernel):
+def _update(x, rn, d, kernel):
     """x + ||r|| d: in place on ``x`` by the kernel where ``kernel`` holds."""
     if kernel:
         return fdfd_residual.update(x, rn, d)
-    return x + (rn[:, None, None] if batched else rn) * d.to(torch.complex128)
+    return x + rn[:, None, None] * d.to(torch.complex128)
 
 
 def _read(norms) -> np.ndarray:
@@ -117,36 +118,19 @@ def refine(
     x0: Optional[torch.Tensor] = None,
     inner_dtype=torch.complex64,
 ) -> RefineResult:
-    """Iteratively refine ``A x = b`` (complex128 ``op64`` and ``b``) to
-    ``target`` true relative residual.
+    """Iteratively refine ``A x = b`` (complex128 ``op64`` and (Nx, Ny)
+    ``b``) to ``target`` true relative residual: :func:`refine_batched` of
+    a batch of one.
 
     ``inner_solve``: any complex64 solver taking a unit-norm (Nx, Ny) RHS
     and returning an approximate correction. Stops early when the residual
     stagnates (``rel >= 0.9 * prev``), so a mis-tuned inner solve never loops
     forever. A supplied ``x0`` is copied, never written.
     """
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    kernel = fdfd_residual.takes_kernel(op64, b, x, inner_dtype, batched=False)
-    bn = float(_read(_rhs_norm(b, False, kernel)))
-    if bn == 0.0:
-        return RefineResult(x, 0.0, 0, [0.0])
-
-    trace: List[float] = []
-    prev = float("inf")
-    rounds = 0
-    for k in range(max_rounds):
-        rc, rn = _residual_step(op64, b, x, inner_dtype, False, kernel)
-        rel = float(_read(rn)) / bn
-        trace.append(rel)
-        if rel <= target or rel >= 0.9 * prev:  # converged or stagnated
-            break
-        prev = rel
-        x = _update(x, rn, inner_solve(rc), False, kernel)
-        rounds = k + 1
-    else:
-        _, rn = _residual_step(op64, b, x, inner_dtype, False, kernel)
-        trace.append(float(_read(rn)) / bn)
-    return RefineResult(x, trace[-1], rounds, trace)
+    out = refine_batched(op64, b[None], lambda r: inner_solve(r[0])[None], target=target,
+                         max_rounds=max_rounds, x0=None if x0 is None else x0[None],
+                         inner_dtype=inner_dtype)
+    return RefineResult(out.x[0], float(out.relative_residual[0]), out.rounds, out.trace)
 
 
 def refine_batched(
@@ -156,6 +140,7 @@ def refine_batched(
     *,
     target: float = 1e-9,
     max_rounds: int = 8,
+    x0: Optional[torch.Tensor] = None,
     inner_dtype=torch.complex64,
 ) -> BatchRefineResult:
     """Refine a BATCH of right-hand sides ``A x_i = b_i`` jointly.
@@ -164,32 +149,35 @@ def refine_batched(
     ``inner_solve`` maps a (B, Nx, Ny) batch to corrections in one call.
     Runs until the WORST sample meets ``target`` or the worst-case residual
     stagnates; each round is one batched float64 residual pass and one
-    batched inner solve.
+    batched inner solve. A supplied ``x0`` is copied, never written. Where
+    every b is zero, x (zero, or the copy of ``x0``) returns at once, with
+    no residual pass.
     """
     if b.ndim != 3:
         raise ValueError(f"refine_batched wants (B, Nx, Ny) fields, got {tuple(b.shape)}")
-    B = b.shape[0]
-    x = torch.zeros_like(b)
-    kernel = fdfd_residual.takes_kernel(op64, b, x, inner_dtype, batched=True)
-    bn = _read(_rhs_norm(b, True, kernel))
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    kernel = fdfd_residual.takes_kernel(op64, b, x, inner_dtype)
+    bn = _read(_rhs_norm(b, kernel))
+    if not bn.any():
+        return BatchRefineResult(x, np.zeros_like(bn), 0, [0.0])
     bn_safe = np.where(bn == 0.0, 1.0, bn)
 
     trace: List[float] = []
     prev = float("inf")
     rounds = 0
     for k in range(max_rounds):
-        rc, rn = _residual_step(op64, b, x, inner_dtype, True, kernel)
+        rc, rn = _residual_step(op64, b, x, inner_dtype, kernel)
         rel = _read(rn) / bn_safe
-        worst = float(rel.max()) if B else 0.0
+        worst = float(rel.max())
         trace.append(worst)
-        if worst <= target or worst >= 0.9 * prev:
+        if worst <= target or worst >= 0.9 * prev:  # converged or stagnated
             break
         prev = worst
-        x = _update(x, rn, inner_solve(rc), True, kernel)
+        x = _update(x, rn, inner_solve(rc), kernel)
         rounds = k + 1
     else:
-        _, rn = _residual_step(op64, b, x, inner_dtype, True, kernel)
+        _, rn = _residual_step(op64, b, x, inner_dtype, kernel)
         rel = _read(rn) / bn_safe
-        trace.append(float(rel.max()) if B else 0.0)
+        trace.append(float(rel.max()))
     # ``rel`` is the residual of the returned x: every exit reads it last
     return BatchRefineResult(x, rel, rounds, trace)

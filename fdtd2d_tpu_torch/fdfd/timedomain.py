@@ -49,15 +49,9 @@ import numpy as np
 import torch
 
 from fdtd2d_tpu_torch import constants
+from fdtd2d_tpu_torch.fdfd.direct import _PARITIES, merge_sublattices, split_sublattices
 from fdtd2d_tpu_torch.fdfd.refine import refine, true_relative_residual
 from fdtd2d_tpu_torch.ops.helmholtz import make_operator, pml_sigma_profile
-
-_PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
-
-
-def _sub_stack(a: np.ndarray) -> np.ndarray:
-    """(Nx, Ny) -> (4, Nx/2, Ny/2) sublattice stack in _PARITIES order."""
-    return np.stack([a[px::2, py::2] for (px, py) in _PARITIES])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -406,8 +400,8 @@ def build_wave_bundle(eps, mu, dx, dy, omega, *, pml_thickness: int = 40,
     hd_row = np.where(sig_r > 0, stab_damp, 0.0)
     hd_col = np.where(sig_c > 0, stab_damp, 0.0)
 
-    col_par = (0, 1, 0, 1)   # py per _PARITIES
-    row_par = (0, 0, 1, 1)   # px per _PARITIES
+    row_par = tuple(px for px, _ in _PARITIES)
+    col_par = tuple(py for _, py in _PARITIES)
 
     def strips(prof, parities):
         # (N,) profile -> (4, 2t) strip-packed per sublattice parity
@@ -420,8 +414,12 @@ def build_wave_bundle(eps, mu, dx, dy, omega, *, pml_thickness: int = 40,
     def f32(a):
         return torch.as_tensor(np.asarray(a), device=device).to(torch.float32)
 
+    def sub(a):
+        # (Nx, Ny) -> (4, Nx/2, Ny/2) float32 sublattice stack
+        return f32(np.stack(split_sublattices(a)))
+
     common = dict(
-        inv_eps_dt2=f32(_sub_stack(dt * dt / eps)),
+        inv_eps_dt2=sub(dt * dt / eps),
         d0_col=f32(strips(d0_c, col_par)[:, None, :]),
         gg_col=f32(strips(gg_c, col_par)[:, None, :]),
         d0_row=f32(strips(d0_r, row_par)[:, :, None]),
@@ -448,8 +446,7 @@ def build_wave_bundle(eps, mu, dx, dy, omega, *, pml_thickness: int = 40,
             e_c=f32(vec(e_c, col_par)), w_c=f32(vec(w_c, col_par)),
             s_r=f32(vec(s_v, row_par)), n_r=f32(vec(n_v, row_par)), dense=False, **common)
 
-    return WaveBundle(dc=f32(_sub_stack(dc)), dr=f32(_sub_stack(dr)), e_c=f32(_sub_stack(e)),
-                      w_c=f32(_sub_stack(w)), s_r=f32(_sub_stack(s)), n_r=f32(_sub_stack(n)),
+    return WaveBundle(dc=sub(dc), dr=sub(dr), e_c=sub(e), w_c=sub(w), s_r=sub(s), n_r=sub(n),
                       dense=True, **common)
 
 
@@ -466,17 +463,6 @@ def wave_bundle_from_numpy(*, dense, t, n_main, n_avg, n_ramp, device="cpu",
 # ---------------------------------------------------------------------------
 # Full-grid assembly and the solver
 # ---------------------------------------------------------------------------
-
-
-def _split_sub(b: torch.Tensor) -> torch.Tensor:
-    return torch.stack([b[px::2, py::2] for (px, py) in _PARITIES])
-
-
-def _merge_sub(x_sub: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    out = torch.zeros_like(like)
-    for i, (px, py) in enumerate(_PARITIES):
-        out[px::2, py::2] = x_sub[i]
-    return out
 
 
 class TimeDomainSolver:
@@ -511,7 +497,8 @@ class TimeDomainSolver:
     def precondition(self, b: torch.Tensor) -> torch.Tensor:
         """~A^{-1} b on the full grid (complex64 in, complex64 out): one wave
         run."""
-        return _merge_sub(wave_run(self.bundle, _split_sub(b)), b)
+        x4 = wave_run(self.bundle, torch.stack(split_sublattices(b)))
+        return merge_sublattices(x4, torch.zeros_like(b))
 
     def solve(self, source, *, rhs_scale=None, refine_target: float = 1e-6,
               max_refine_rounds: int = 30, return_split: bool = False,

@@ -91,15 +91,12 @@ def _refusal(op: Optional[HelmholtzOperator], *fields: torch.Tensor) -> Optional
     return None
 
 
-def takes_kernel(op: HelmholtzOperator, b: torch.Tensor, x: torch.Tensor, inner_dtype,
-                 batched: bool) -> bool:
+def takes_kernel(op: HelmholtzOperator, b: torch.Tensor, x: torch.Tensor, inner_dtype) -> bool:
     """fdfd/refine.py's rule, taken once a refinement: contiguous CUDA
-    complex128 fields ``b`` and ``x``, (B, Nx, Ny) when ``batched`` and (Nx,
-    Ny) when not, an unstacked complex128 operator, complex64 inner solves.
-    Where it holds, every residual pass, the norm of b and every update of
-    that refinement run the kernels."""
-    return (inner_dtype == torch.complex64 and b.dim() == 2 + batched
-            and _refusal(op, b, x) is None)
+    complex128 (B, Nx, Ny) fields ``b`` and ``x``, an unstacked complex128
+    operator, complex64 inner solves. Where it holds, every residual pass,
+    the norm of b and every update of that refinement run the kernels."""
+    return inner_dtype == torch.complex64 and b.dim() == 3 and _refusal(op, b, x) is None
 
 
 def _check(op: Optional[HelmholtzOperator], *fields: torch.Tensor):

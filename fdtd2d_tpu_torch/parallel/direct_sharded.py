@@ -26,7 +26,7 @@ from fdtd2d_tpu_torch.fdfd.compressed import (
     factor_compressed_stacked, hodlr_plan, make_test_matrices,
 )
 from fdtd2d_tpu_torch.fdfd.direct import (
-    _PARITIES, _factor_rows, _solve_sub, stack_coefficients,
+    _factor_rows, _solve_sub, merge_sublattices, split_sublattices, stack_coefficients,
 )
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator
 
@@ -80,13 +80,10 @@ def solve_factored_sharded(f: ShardedFactors, b) -> torch.Tensor:
     merged on b's device."""
     Nx, Ny = f.shape
     bk = b.reshape(-1, Nx, Ny)
-    x = torch.zeros_like(bk)
-    b4 = torch.stack([bk[..., px::2, py::2] for (px, py) in _PARITIES])
+    b4 = torch.stack(split_sublattices(bk))
     per = 4 // len(f.groups)
+    parts = []   # the groups hold the sublattices in order
     for dev, k0, fac in f.groups:
         part = b4[k0] if per == 1 else b4[k0:k0 + per]
-        xk = _solve_sub(fac, part.to(dev)).to(b.device).reshape((per,) + part.shape[-3:])
-        for j in range(per):
-            px, py = _PARITIES[k0 + j]
-            x[..., px::2, py::2] = xk[j]
-    return x.reshape(b.shape)
+        parts.extend(_solve_sub(fac, part.to(dev)).to(b.device).reshape((per,) + part.shape[-3:]))
+    return merge_sublattices(parts, torch.zeros_like(bk)).reshape(b.shape)

@@ -36,9 +36,9 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from fdtd2d_tpu_torch.fdfd.direct import merge_sublattices, split_sublattices
 from fdtd2d_tpu_torch.fdfd.timedomain import (
-    TimeDomainSolver, WaveBundle, _make_plan, _merge_sub, _Plan, _psi0, _split_sub, _step,
-    band_pieces)
+    TimeDomainSolver, WaveBundle, _make_plan, _Plan, _psi0, _step, band_pieces)
 from fdtd2d_tpu_torch.parallel.fdtd_sharded import _copy_strip
 from fdtd2d_tpu_torch.parallel.mesh import Mesh, block_bounds
 
@@ -240,4 +240,5 @@ class TimeDomainSolverSharded(TimeDomainSolver):
     def precondition(self, b: torch.Tensor) -> torch.Tensor:
         """~A^{-1} b on the full grid (complex64 in and out, on ``b``'s
         device): one wave run on the blocks."""
-        return _merge_sub(wave_run_sharded(self.sharded, _split_sub(b)), b)
+        x4 = wave_run_sharded(self.sharded, torch.stack(split_sublattices(b)))
+        return merge_sublattices(x4, torch.zeros_like(b))

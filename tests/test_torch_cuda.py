@@ -930,10 +930,10 @@ def test_residual_rule_sends_the_rest_to_the_chain_on_card(dev, case):
     x, b = _c128(shape, dev, 9), _c128(shape, dev, 10, 1e10)
     if case == "non-contiguous field":
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
-    kernel = fr.takes_kernel(op, b, x, torch.complex64, True)
+    kernel = fr.takes_kernel(op, b, x, torch.complex64)
     assert not kernel
     before = trace.counters()
-    rc, rn = _residual_step(op, b, x, torch.complex64, True, kernel)
+    rc, rn = _residual_step(op, b, x, torch.complex64, kernel)
     torch.cuda.synchronize()
     assert trace.delta(before, "fdfd.kernels.residual_passes") == 0
     r = op.residual(b, x)

@@ -19,8 +19,8 @@ from fdtd2d_tpu.ops.helmholtz import make_operator as jax_make_operator
 from fdtd2d_tpu.ops.splitc import make_operator_f64, split_from_numpy
 from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
 from fdtd2d_tpu_torch.fdfd.direct import (
-    DirectSolver, factor, factor_checkpointed, factor_stacked, solve_checkpointed,
-    solve_direct, solve_factored, solve_stacked,
+    DirectSolver, factor, factor_checkpointed, factor_stacked, merge_sublattices,
+    solve_checkpointed, solve_direct, solve_factored, solve_stacked, split_sublattices,
 )
 from fdtd2d_tpu_torch.fdfd.refine import refine, scaled_norm, true_relative_residual
 from fdtd2d_tpu_torch.ops.helmholtz import make_operator
@@ -229,6 +229,25 @@ def test_refine_stagnation_stop_matches_jax():
     assert out.rounds == jout.rounds == 1
     assert out.trace == jout.trace == [1.0, 1.0]
     assert out.relative_residual == 1.0
+
+
+@pytest.mark.parametrize("kind", ["torch", "numpy"])
+@pytest.mark.parametrize("shape", [(6, 8), (7, 5), (3, 6, 8), (2, 3, 7, 5)])
+def test_split_then_merge_is_the_identity(shape, kind):
+    """The four sublattices, split and merged back into an empty grid, give
+    the input bit for bit: even and odd grids (unequal sublattices), with a
+    leading K and (B, K) axes, tensors and numpy arrays alike."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    a = torch.tensor(a) if kind == "torch" else a
+    parts = split_sublattices(a)
+    assert len(parts) == 4
+    for part, (px, py) in zip(parts, [(0, 0), (0, 1), (1, 0), (1, 1)]):
+        assert part.shape[-2:] == ((shape[-2] - px + 1) // 2, (shape[-1] - py + 1) // 2)
+        assert np.array_equal(np.asarray(part[..., 0, 0]), np.asarray(a[..., px, py]))
+    out = merge_sublattices(parts, torch.full_like(a, float("nan")) if kind == "torch"
+                            else np.full_like(a, np.nan))
+    assert np.array_equal(np.asarray(out), np.asarray(a))
 
 
 def test_refine_zero_rhs_returns_at_once():

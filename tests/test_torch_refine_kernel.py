@@ -115,17 +115,18 @@ def _on_card(monkeypatch):
 
 @pytest.mark.parametrize("B", [None, 4])
 def test_rule_takes_contiguous_complex128_fields(monkeypatch, B):
-    """With the device clause met, the rule takes (Nx, Ny) fields unbatched
-    and (B, Nx, Ny) batched, complex128 of an unstacked complex128 operator
-    with complex64 inner solves; on the CPU it takes nothing."""
+    """With the device clause met, the rule takes (B, Nx, Ny) fields, refine's
+    batch of one among them, complex128 of an unstacked complex128 operator
+    with complex64 inner solves, and no (Nx, Ny) field; on the CPU it takes
+    nothing."""
     op = _op(23, 17, 4)
-    shape = (23, 17) if B is None else (B, 23, 17)
-    batched = B is not None
-    b, x = _fields(shape)
-    assert not fr.takes_kernel(op, b, x, torch.complex64, batched)
+    b, x = _fields((23, 17) if B is None else (B, 23, 17))
+    if B is None:   # refine's one field, as the batch of one it refines
+        b, x = b[None], x[None]
+    assert not fr.takes_kernel(op, b, x, torch.complex64)
     _on_card(monkeypatch)
-    assert fr.takes_kernel(op, b, x, torch.complex64, batched)
-    assert not fr.takes_kernel(op, b, x, torch.complex64, not batched)
+    assert fr.takes_kernel(op, b, x, torch.complex64)
+    assert not fr.takes_kernel(op, b[0], x[0], torch.complex64)
 
 
 def _stacked():
@@ -170,7 +171,7 @@ def test_rule_sends_the_rest_to_the_chain(monkeypatch, case):
         b, x = b[0], x[0]
     elif case == "empty batch":
         b, x = b[:0], x[:0]
-    assert not fr.takes_kernel(op, b, x, inner, True)
+    assert not fr.takes_kernel(op, b, x, inner)
 
 
 @pytest.mark.parametrize("case", ["non-contiguous x", "complex128 d", "d of another shape",
@@ -280,3 +281,18 @@ def test_refine_leaves_a_supplied_x0_as_it_was():
     assert out.rounds >= 2 and torch.equal(x0, kept)
     x, rounds, tr = _old_refine(op64, b, solve, 1e-13, False, x0=kept)
     assert out.rounds == rounds and out.trace == tr and torch.equal(out.x, x)
+
+
+@pytest.mark.parametrize("with_x0", [False, True])
+def test_refine_is_refine_batched_of_one(with_x0):
+    """refine(b) is refine_batched(b[None]) bit for bit on the CPU: x, the
+    residual, rounds and trace, with and without x0."""
+    op64 = _op(12, 11, 3)
+    b, x0 = _fields((12, 11))
+    solve = _contracting_solve(op64)
+    one = refine_mod.refine(op64, b, solve, target=1e-13, x0=x0 if with_x0 else None)
+    batch = refine_mod.refine_batched(op64, b[None], solve, target=1e-13,
+                                      x0=x0[None] if with_x0 else None)
+    assert one.rounds >= 2 and one.rounds == batch.rounds and one.trace == batch.trace
+    assert one.relative_residual == float(batch.relative_residual[0])
+    assert torch.equal(one.x, batch.x[0])

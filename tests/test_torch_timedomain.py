@@ -18,6 +18,7 @@ import torch
 from fdtd2d_tpu import constants
 from fdtd2d_tpu.fdfd import timedomain as jtd
 from fdtd2d_tpu_torch.fdfd import timedomain as td
+from fdtd2d_tpu_torch.fdfd.direct import merge_sublattices, split_sublattices
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 from test_fdfd_operator import scipy_make_A  # noqa: E402
@@ -137,7 +138,7 @@ def test_wave_run_matches_jax(dense):
     jb = jtd.build_wave_bundle(eps, mu, DX, DX, 30e9, pml_thickness=12, transits=3.0)
     assert jb.n_main + jb.n_avg > 250
     b = (-1j * src).astype(np.complex64)
-    b_sub = np.stack([b[px::2, py::2] for px, py in td._PARITIES])
+    b_sub = np.stack(split_sublattices(b))
     b_sub = b_sub + 1e-2 * _c64(np.random.default_rng(2), *b_sub.shape)
     want = jtd.wave_run(jb, jnp.asarray(b_sub))
     got = td.wave_run(td.wave_bundle_from_numpy(**_fields(jb)), torch.tensor(b_sub))
@@ -166,14 +167,14 @@ def test_dense_and_separable_paths_agree():
     N, omega, pml = 64, 30e9, 12
     eps, mu, src = _scene(N)
     b = torch.tensor(-1j * omega * src, dtype=torch.complex64)
-    bs = td._split_sub(b / torch.linalg.vector_norm(b))
+    bs = torch.stack(split_sublattices(b / torch.linalg.vector_norm(b)))
     sep = td.build_wave_bundle(eps, mu, DX, DX, omega, pml_thickness=pml, transits=3.0,
                                device="cpu")
     den = td.build_wave_bundle(eps, _scene(N, dense=True)[1], DX, DX, omega,
                                pml_thickness=pml, transits=3.0, device="cpu")
     assert not sep.dense and den.dense
     assert _rel(td.wave_run(den, bs), td.wave_run(sep, bs)) <= 1e-4
-    assert torch.equal(td._merge_sub(bs, b), b / torch.linalg.vector_norm(b))
+    assert torch.equal(merge_sublattices(bs, torch.zeros_like(b)), b / torch.linalg.vector_norm(b))
 
 
 def test_solver_warns_on_stall():
