@@ -283,6 +283,18 @@ memory (``torch.cuda.max_memory_allocated``) after its work.
     on the hard scene at 512^2 and 1024^2 (17 GHz, PML 40): factor seconds,
     the store equal to ``predicted_factor_bytes``, peak, warm solve to 1e-6
     within the mode's 40 rounds, rounds and contraction a round.
+42. (Runs right after phase 29.) The HPS level kernel (ops/fdfd_hps.py)
+    at 2048^2 on the fdfd-hps benchmark scene (hard binary, seed 7,
+    contrast 3, PML 40): one ``solve_batched`` of 16 point sources to 1e-6
+    must count 2 (levels + 1) launches an inner solve; then at K = 16 and
+    K = 1 on random right-hand sides, the kernel path of ``hps_solve``
+    against the torch path (``_solve_cols``, cuBLAS) (<= 1e-5 relative in a
+    right-hand side's 2-norm), ms of the whole inner solve of each in
+    turns, and of the kernel's up and down launches (CUDA events around
+    each), beside the floor (Y and twice E read at 3.35 TB/s) and the
+    roofline's least time (portbench/hps_readers.py's count: the larger of
+    Y + E and the right-hand sides at 3.35 TB/s and 8 K (Y + 2 E) float32
+    operations at 67 TFLOP/s).
 30. The sublattice-sharded direct solve (parallel/direct_sharded.py) on
     meshes of 4 and 2 x cuda:0 at 512^2, stored, checkpointed (stride 32)
     and compressed (rank 20), against the single-device solve of its mode
@@ -1583,6 +1595,121 @@ def hps_phase(dev) -> dict:
     return out
 
 
+def hps_sweep_phase(dev) -> dict:
+    """Phase 42 (right after phase 29): the HPS level kernel at 2048^2 on
+    the fdfd-hps scene: the main path's launch count, the kernel against
+    the torch path at K = 16 and K = 1, ms of each in turns and of the
+    kernel's launches by direction, beside the floor and the roofline."""
+    from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
+    from fdtd2d_tpu_torch.fdfd import hps
+    from fdtd2d_tpu_torch.fdfd.direct import DirectSolver
+    from fdtd2d_tpu_torch.ops import fdfd_hps
+    from fdtd2d_tpu_torch.utils import trace
+
+    t0 = phase("42. the HPS level kernel at 2048^2 vs the torch path, K = 16 and K = 1")
+    N = 2048
+    eps, mu, _ = hard_binary_scene(N, seed=7, contrast=3.0)
+    solver = DirectSolver(eps, mu, 1e-3, 1e-3, 17e9, pml_thickness=40, hps=True, hps_leaf=8,
+                          device=dev)
+    f = solver.factors
+    plan = hps.build_plan(N // 2, N // 2, 8)
+    launches = 2 * (len(plan.merges) + 1)
+    plain_rule = hps._on_card
+    ij = np.random.default_rng(42).integers(N // 4, 3 * N // 4, size=(16, 2))
+    srcs = np.zeros((16, N, N))
+    srcs[np.arange(16), ij[:, 0], ij[:, 1]] = 1.0
+    before = trace.counters()
+    _, res, tr = solver.solve_batched(srcs, refine_target=1e-6, return_split=True)
+    inner = trace.delta(before, "fdfd.backsolve")
+    counted = trace.delta(before, "fdfd.kernels.hps_sweeps")
+    if counted != launches * inner or not float(res.max()) <= 1e-6:
+        raise AssertionError(f"solve_batched at {N}^2: {counted} kernel launches for {inner} "
+                             f"inner solves ({launches} each), residuals {res}")
+    hps._on_card = lambda f_, b_: False
+    try:
+        _, res_torch, tr_torch = solver.solve_batched(srcs, refine_target=1e-6, return_split=True)
+    finally:
+        hps._on_card = plain_rule
+    if len(tr) > len(tr_torch):
+        raise AssertionError(f"the kernel's refinement took more rounds than the torch path's: "
+                             f"{tr} against {tr_torch}")
+    out = {"solve_batched_trace": list(tr), "torch_path_trace": list(tr_torch),
+           "launches_an_inner_solve": launches}
+    print(f"   solve_batched of 16 sources: {inner} inner solves, {counted} level-kernel "
+          f"launches, trace {[f'{t:.2e}' for t in tr]}; the torch path's "
+          f"{[f'{t:.2e}' for t in tr_torch]}")
+    del srcs
+    # complex64 entries of every stored Y (the root's inverse included) and E
+    y = sum(lev.Y.numel() for lev in (f.stacked.leaf, *f.stacked.levels)) + f.stacked.Yroot.numel()
+    e = sum(lev.E.numel() for lev in (f.stacked.leaf, *f.stacked.levels))
+    for K in (16, 1):
+        gen = torch.Generator(device=dev).manual_seed(K)
+        b = torch.randn(K, N, N, dtype=torch.complex64, device=dev, generator=gen)
+        x = hps.hps_solve(f, b)
+        hps._on_card = lambda f_, b_: False
+        try:
+            x_torch = hps.hps_solve(f, b)
+            ms = {"kernel": [], "torch": []}
+            for name in ("torch", "kernel", "kernel", "torch"):
+                if name == "torch":
+                    ms[name].append(events_ms(lambda: hps.hps_solve(f, b), 3))
+                else:
+                    hps._on_card = plain_rule
+                    ms[name].append(events_ms(lambda: hps.hps_solve(f, b), 10))
+                    hps._on_card = lambda f_, b_: False
+        finally:
+            hps._on_card = plain_rule
+        err = float((torch.linalg.vector_norm(x - x_torch, dim=(1, 2))
+                     / torch.linalg.vector_norm(x_torch, dim=(1, 2))).max())
+        # the two sum in another order, and the raw complex64 solve at 2048^2
+        # is far from exact (the torch path's first refinement round leaves
+        # ~0.15): the difference is of the solves' own error
+        if not err <= 0.05:
+            raise AssertionError(f"HPS kernel at K = {K}: {err:.3e} from the torch path")
+        # each launch's device time, by events around it
+        marks, launch = [], fdfd_hps.launch
+
+        def marked(lp, *a, **k):
+            s, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            launch(lp, *a, **k)
+            e_.record()
+            marks.append((lp, s, e_))
+
+        fdfd_hps.launch = marked
+        try:
+            hps.hps_solve(f, b)
+            torch.cuda.synchronize(dev)
+        finally:
+            fdfd_hps.launch = launch
+        by = {"up": 0.0, "down": 0.0}
+        levels = []
+        for lp, s, e_ in marks:
+            t = s.elapsed_time(e_)
+            by["down" if lp.down else "up"] += t
+            levels.append({"down": lp.down, "nJ": lp.nJ, "nR": lp.nR, "items": lp.items,
+                           "tc": lp.tc, "blocks": lp.blocks, "ms": t})
+        floor = 8 * (y + 2 * e) / HBM_BYTES_S * 1e3
+        least = 1e3 * max(8 * (y + e + 2 * K * N * N) / HBM_BYTES_S,
+                          8 * K * (y + 2 * e) / F32_FLOPS)
+        best = min(ms["kernel"])
+        out[f"K{K}"] = {"kernel_ms": ms["kernel"], "torch_ms": ms["torch"], "up_ms": by["up"],
+                        "down_ms": by["down"], "levels": levels, "floor_ms_y_2e": floor,
+                        "roofline_least_ms": least, "floor_share": floor / best,
+                        "roofline_share": least / best, "rel_err_vs_torch": err}
+        print(f"   K = {K}: inner solve kernel {[f'{t:.3f}' for t in ms['kernel']]} ms, torch "
+              f"{[f'{t:.3f}' for t in ms['torch']]}; launches up {by['up']:.3f} + down "
+              f"{by['down']:.3f} ms; Y + 2E floor {floor:.3f} ms ({100 * floor / best:.1f}%), "
+              f"roofline {least:.3f} ms ({100 * least / best:.1f}%); vs torch {err:.3e}")
+        print("   " + "; ".join(f"{'dn' if v['down'] else 'up'} {v['nJ']}x{v['nR']} "
+                                 f"{v['ms']:.3f}" for v in levels))
+        del b, x, x_torch
+    del solver, f
+    torch.cuda.empty_cache()
+    done(t0)
+    return out
+
+
 def sharded_direct_phase(dev) -> dict:
     """Phase 30: factor_sharded on meshes of cuda:0 (4 and 2 entries) at
     512^2 in the stored, checkpointed and compressed modes, each against the
@@ -2825,6 +2952,7 @@ def main() -> int:
     t_direct = time.perf_counter()
     direct_modes, stored_estimate_s, scene2048 = compressed_phase(dev)
     direct_modes["hps"] = hps_phase(dev)
+    direct_modes["hps_sweep"] = hps_sweep_phase(dev)
     direct_modes["sharded_512"] = sharded_direct_phase(dev)
     direct_modes["phases_28_30_s"] = time.perf_counter() - t_direct
     bench_rows = bench_phase()

@@ -47,11 +47,17 @@ The four sublattices factor and solve as one batch on a leading axis of 4:
 the plans need their common shape, so N is even (as for the JAX package,
 whose plans reject the shapes an odd N gives for any leaf above 1).
 
+On the card a complex64 factor's sweeps run as the level kernels of
+ops/fdfd_hps.py (:func:`_on_card`): a launch a level and direction, the
+indices of each level's gathers composed into one int32 table when
+``_device_plan`` is built. :func:`_solve_cols`, the torch path, runs every
+other input (CPU tensors, complex128 factors).
+
 Spans and counters (utils/trace.py): ``fdfd.hps.factor`` around
 :func:`hps_factor`; in :func:`hps_solve`, ``fdfd.hps.split`` (the parity
-split and the transposes in, the scatter back out), ``fdfd.hps.up`` (the
-leaf fold and the upward merges), ``fdfd.hps.root`` and ``fdfd.hps.down``
-(the downward back-substitution and the gather to grid order); counters
+split in, the merge back out; the torch path's transposes), ``fdfd.hps.up``
+(the leaf fold and the upward merges), ``fdfd.hps.root`` and
+``fdfd.hps.down`` (the downward back-substitution to grid order); counters
 ``fdfd.hps.solves``, one an inner solve, and ``fdfd.hps.levels``, merge
 levels walked, up plus down. None of them synchronizes with the device.
 """
@@ -67,6 +73,7 @@ import torch
 
 from fdtd2d_tpu_torch.fdfd.direct import (five_point_coefficients, merge_sublattices,
                                           split_sublattices)
+from fdtd2d_tpu_torch.ops import fdfd_hps
 from fdtd2d_tpu_torch.ops.helmholtz import HelmholtzOperator
 from fdtd2d_tpu_torch.utils.trace import count, span
 
@@ -221,6 +228,9 @@ class _DeviceMerge:
     idx_R: torch.Tensor
     xcat_perm: torch.Tensor     # cat([x_J, x_R]) -> the concatenated child skeleton
     child_src: torch.Tensor     # (2P,) child c's row in the (P, 2) parent-half order
+    table: torch.Tensor         # (P, nJ + nR) int32: up_src, idx_J and idx_R composed, the
+                                # point of each J, then R, point among the children's skeletons
+    order: torch.Tensor         # (2 P rho,) int32: its inverse, each child point's place
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,6 +243,7 @@ class _DevicePlan:
     box_R: torch.Tensor         # (n_boxes, rho) of ring points
     merges: Tuple[_DeviceMerge, ...]
     out_perm: torch.Tensor      # cat(root, J of each level top-down, leaf I) -> grid
+    leaf_table: torch.Tensor    # (n_boxes, nI + rho) int32: box_I, then box_R
 
 
 @functools.lru_cache(maxsize=8)
@@ -240,8 +251,8 @@ def _device_plan(nr: int, nc: int, m: int, device: torch.device) -> _DevicePlan:
     plan = build_plan(nr, nc, m)
     lf = plan.leaf
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+    def t(a, dtype=np.int64):
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
 
     gi = _gidx(lf.origins, lf.ent_loc, nc, (m, m))
     merges, placed = [], []
@@ -250,25 +261,30 @@ def _device_plan(nr: int, nc: int, m: int, device: torch.device) -> _DevicePlan:
         child = np.empty(2 * mp.n_parents, np.int64)
         child[mp.pair1] = 2 * np.arange(mp.n_parents)
         child[mp.pair2] = 2 * np.arange(mp.n_parents) + 1
+        rho = (len(mp.idx_J) + len(mp.idx_R)) // 2
+        cat = np.concatenate([mp.idx_J, mp.idx_R])
+        box = np.where(cat < rho, mp.pair1[:, None], mp.pair2[:, None])
         merges.append(_DeviceMerge(
             coup_gather=t(coup), coup_a=t(mp.coup_a), coup_b=t(mp.coup_b),
             pair1=t(mp.pair1), pair2=t(mp.pair2),
             up_src=t(np.stack([mp.pair1, mp.pair2], axis=1).reshape(-1)),
             idx_J=t(mp.idx_J), idx_R=t(mp.idx_R),
-            xcat_perm=t(np.argsort(np.concatenate([mp.idx_J, mp.idx_R]))),
-            child_src=t(child)))
+            xcat_perm=t(np.argsort(cat)), child_src=t(child),
+            table=t(box * rho + cat % rho, np.int32),
+            order=t(np.argsort((box * rho + cat % rho).ravel()), np.int32)))
         placed.append(_gidx(mp.origins, mp.J_coords[:, 0] * mp.parent_shape[1]
                             + mp.J_coords[:, 1], nc, mp.parent_shape).ravel())
     root = plan.root_coords[:, 0].astype(np.int64) * nc + plan.root_coords[:, 1]
     leaf_I = _gidx(lf.origins, lf.idx_I, nc, (m, m))
+    leaf_R = _gidx(lf.origins, lf.idx_R, nc, (m, m))
     order = np.concatenate([root, *placed[::-1], leaf_I.ravel()])
     assert np.array_equal(np.sort(order), np.arange(nr * nc))
     return _DevicePlan(
         leaf_gather=t(lf.ent_src[None, :].astype(np.int64) * (nr * nc) + gi),
         leaf_pos=t(lf.ent_r.astype(np.int64) * (m * m) + lf.ent_c),
-        leaf_I=t(lf.idx_I), leaf_R=t(lf.idx_R), box_I=t(leaf_I),
-        box_R=t(_gidx(lf.origins, lf.idx_R, nc, (m, m))), merges=tuple(merges),
-        out_perm=t(np.argsort(order)))
+        leaf_I=t(lf.idx_I), leaf_R=t(lf.idx_R), box_I=t(leaf_I), box_R=t(leaf_R),
+        merges=tuple(merges), out_perm=t(np.argsort(order)),
+        leaf_table=t(np.concatenate([leaf_I, leaf_R], axis=1), np.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -381,11 +397,34 @@ def _solve_cols(f: SubHPSFactors, plan: HPSPlan, b):
         return torch.cat(pieces, dim=-2)[..., dp.out_perm, :]
 
 
+def _on_card(f: SubHPSFactors, b) -> bool:
+    """The level kernels' rule: right-hand sides on the card and complex64
+    factors; every other input runs :func:`_solve_cols`."""
+    return b.device.type == "cuda" and f.leaf.Y.dtype == torch.complex64
+
+
+def _sweep_operands(f: SubHPSFactors, plan: HPSPlan, device):
+    """(leaf, levels, Yroot) as ops/fdfd_hps.py takes them: each level's
+    factors beside its composed int32 table (and a merge's order)."""
+    dp = _device_plan(plan.nr, plan.nc, plan.leaf.m, device)
+    return ((f.leaf.Y, f.leaf.E, dp.leaf_table),
+            tuple((lev.Y, lev.E, dm.table, dm.order) for lev, dm in zip(f.levels, dp.merges)),
+            f.Yroot)
+
+
+def _solve(f: SubHPSFactors, plan: HPSPlan, b):
+    """x = A^{-1} b, b (..., K, nr*nc) contiguous: the level kernels on the
+    card (:func:`_on_card`), else the torch path, which carries K last."""
+    if _on_card(f, b):
+        return fdfd_hps.hps_sweeps(*_sweep_operands(f, plan, b.device), b)
+    return _solve_cols(f, plan, b.movedim(-1, -2).contiguous()).movedim(-1, -2)
+
+
 def hps_solve_sub(f: SubHPSFactors, plan: HPSPlan, b):
     """x = A^{-1} b on one factored sublattice (or several stacked); b
     (..., nr, nc) -> x (..., nr, nc)."""
-    x = _solve_cols(f, plan, b.reshape(*b.shape[:-2], plan.nr * plan.nc, 1))
-    return x[..., 0].reshape(b.shape)
+    cols = b.reshape(*b.shape[:-2], 1, plan.nr * plan.nc).contiguous()
+    return _solve(f, plan, cols).reshape(b.shape)
 
 
 def _sub_coefficients(op: HelmholtzOperator):
@@ -441,8 +480,7 @@ def hps_solve(f: HPSFactors, b) -> torch.Tensor:
         bk = b.reshape(-1, Nx, Ny)
         b4 = torch.stack(split_sublattices(bk))  # (4, K, nr, nc)
         plan = build_plan(b4.shape[-2], b4.shape[-1], f.m)
-        cols = b4.flatten(-2).movedim(-2, -1).contiguous()
-    x4 = _solve_cols(f.stacked, plan, cols)
+    x4 = _solve(f.stacked, plan, b4.flatten(-2))
     with span("fdfd.hps.split"):
-        x4 = x4.movedim(-1, -2).reshape(b4.shape)
-        return merge_sublattices(x4, torch.zeros_like(bk)).reshape(b.shape)
+        # the four sublattices of an even grid cover every point
+        return merge_sublattices(x4.reshape(b4.shape), torch.empty_like(bk)).reshape(b.shape)

@@ -142,6 +142,15 @@ def load() -> ctypes.CDLL:
         lib.fdfd_residual_norms.restype = i
         lib.fdfd_refine_update.argtypes = [p, p, p, i, i, p]   # x d norms B per_sample stream
         lib.fdfd_refine_update.restype = i
+        ll = ctypes.c_longlong
+        lib.fdfd_hps_level_run.argtypes = [i, i, p, p, p, p,           # down kp Y E table order
+                                           p, ll, ll, ll, i,           # child: ptr g p k held
+                                           p, p, i,                    # parent g y_t
+                                           i, i, i, i, i, i,           # items P nJ nR tc ni
+                                           p]                          # stream
+        lib.fdfd_hps_level_run.restype = i
+        lib.fdfd_hps_level_layout.argtypes = [i, i, i, i, ctypes.POINTER(i)]  # down kp tc ni out[3]
+        lib.fdfd_hps_level_layout.restype = i
         lib.fdtd_error_string.argtypes = [i]
         lib.fdtd_error_string.restype = ctypes.c_char_p
         _lib = lib

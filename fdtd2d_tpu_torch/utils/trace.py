@@ -25,7 +25,11 @@ refinement's residual passes and updates that ran as kernels
 (ops/fdfd_residual.py); ``fdfd.hps.factor``,
 ``fdfd.hps.split``, ``fdfd.hps.up``, ``fdfd.hps.root``, ``fdfd.hps.down``
 and the counters ``fdfd.hps.solves`` (one an inner solve) and
-``fdfd.hps.levels`` (merge levels walked, up plus down) (fdfd/hps.py).
+``fdfd.hps.levels`` (merge levels walked, up plus down) (fdfd/hps.py; on
+the card the sweep spans and levels are opened and counted by
+ops/fdfd_hps.py, once a chunk of 16 right-hand sides);
+``fdfd.kernels.hps_sweeps``, the launches of the HPS level kernel, one a
+level and direction, the leaf included (ops/fdfd_hps.py).
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ from fdtd2d_tpu_torch import constants
 from fdtd2d_tpu_torch.core.scenes import hard_binary_scene
 from fdtd2d_tpu_torch.fdfd import hps
 from fdtd2d_tpu_torch.fdfd.direct import DirectSolver, five_point_coefficients, solve_direct
+from fdtd2d_tpu_torch.ops import fdfd_hps
 from fdtd2d_tpu_torch.ops.helmholtz import make_operator
 from fdtd2d_tpu_torch.utils import trace
 
@@ -282,6 +283,7 @@ def test_counters_count_each_inner_solve_and_level(N):
     assert [trace.delta(before, f"fdfd.hps.{k}") for k in ("split", "up", "root", "down")] == [
         2 * solves, solves, solves, solves]
     assert trace.delta(before, "fdfd.hps.factor") == 0
+    assert trace.delta(before, "fdfd.kernels.hps_sweeps") == 0   # the CPU runs the torch path
 
 
 def test_solve_batched_agrees_with_the_per_sublattice_reference():
@@ -324,3 +326,167 @@ def test_odd_grid_is_a_value_error():
         hps.hps_factor(op, m=8)
     with pytest.raises(ValueError):
         jhps.hps_factor(jax_make_operator(eps, mu, DX, DX, 17e9, pml_thickness=4), m=8)
+
+
+# -- the level kernels' tables, plain version and planner (ops/fdfd_hps.py) ---------
+
+PLANS = [(32, 32, 8), (64, 32, 8), (48, 48, 12), (16, 64, 4), (256, 256, 8)]
+
+
+def _random_factors(plan, lead, seed, dtype=torch.complex64):
+    """Factors of ``plan``'s shapes with the leading axes ``lead``: normal
+    entries scaled by the inverse square root of a row's terms."""
+    rng = np.random.default_rng(seed)
+
+    def c(*shape):
+        a = rng.standard_normal((*lead, *shape)) + 1j * rng.standard_normal((*lead, *shape))
+        return torch.tensor(a / np.sqrt(shape[-1]), dtype=dtype)
+
+    lf = plan.leaf
+    nI, rho = len(lf.idx_I), len(lf.idx_R)
+    levels = tuple(hps.LevelFactors(Y=c(mp.n_parents, len(mp.idx_J), len(mp.idx_J)),
+                                    E=c(mp.n_parents, len(mp.idx_J), len(mp.idx_R)))
+                   for mp in plan.merges)
+    top = len(plan.root_coords)
+    return hps.SubHPSFactors(leaf=hps.LevelFactors(Y=c(lf.n_boxes, nI, nI),
+                                                   E=c(lf.n_boxes, nI, rho)),
+                             levels=levels, Yroot=c(top, top))
+
+
+def _rhs(lead, K, n, seed, dtype=torch.complex64):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.standard_normal((*lead, K, n)) + 1j * rng.standard_normal((*lead, K, n)),
+                        dtype=dtype)
+
+
+@pytest.mark.parametrize("nr, nc, m", PLANS)
+def test_sweep_tables_compose_the_gathers(nr, nc, m):
+    """Each level's int32 table is up_src, idx_J and idx_R composed: the
+    point of the children's skeletons (box x rho + position) that the torch
+    path gathers into b_J and b_R, and that xcat_perm and child_src send x_J
+    and x_R back to, every child point once, and its order the inverse; the
+    leaf's table is box_I, then box_R, every grid point once."""
+    plan = hps.build_plan(nr, nc, m)
+    dp = hps._device_plan(nr, nc, m, torch.device("cpu"))
+    n = nr * nc
+    assert dp.leaf_table.dtype == torch.int32
+    assert torch.equal(dp.leaf_table.long(), torch.cat([dp.box_I, dp.box_R], dim=1))
+    assert torch.equal(dp.leaf_table.flatten().sort().values, torch.arange(n, dtype=torch.int32))
+    rho = len(plan.leaf.idx_R)
+    for mp, dm in zip(plan.merges, dp.merges):
+        P, nJ = mp.n_parents, len(mp.idx_J)
+        points = torch.arange(2 * P * rho).reshape(2 * P, rho)
+        cat = points[dm.up_src].reshape(P, 2 * rho)            # the torch path's bcat
+        want = torch.cat([cat[:, dm.idx_J], cat[:, dm.idx_R]], dim=1)
+        assert dm.table.dtype == torch.int32 and torch.equal(dm.table.long(), want)
+        # down: cat([x_J, x_R])[xcat_perm], split in halves, to child_src's rows
+        down = torch.empty(2 * P * rho, dtype=torch.long)
+        xcat = torch.arange(P * 2 * rho).reshape(P, 2 * rho)[:, dm.xcat_perm].reshape(2 * P, rho)
+        down[points.flatten()] = xcat[dm.child_src].flatten()
+        assert torch.equal(down[dm.table.long().flatten()], torch.arange(P * 2 * rho))
+        # up writes each child point to its place in the J-then-R order
+        assert dm.order.dtype == torch.int32
+        assert torch.equal(dm.order.long()[dm.table.long().flatten()], torch.arange(P * 2 * rho))
+        rho = len(mp.idx_R)
+
+
+@pytest.mark.parametrize("lead", [(), (4,)], ids=["one", "four"])
+@pytest.mark.parametrize("K", [1, 16])
+@pytest.mark.parametrize("nr, nc, m", PLANS)
+def test_sweeps_reference_matches_solve_cols(nr, nc, m, K, lead):
+    """The kernel's plain version, its tables, skeleton buffers and padded
+    chunks walked by torch ops, reproduces the torch path bit for bit on
+    random complex64 factors."""
+    plan = hps.build_plan(nr, nc, m)
+    f = _random_factors(plan, lead, seed=nr + K)
+    b = _rhs(lead, K, nr * nc, seed=K)
+    want = hps._solve_cols(f, plan, b.movedim(-1, -2).contiguous()).movedim(-1, -2)
+    got = fdfd_hps.hps_sweeps_reference(*hps._sweep_operands(f, plan, b.device), b)
+    assert got.shape == b.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("K", [5, 20])
+def test_sweeps_reference_pads_and_chunks(K):
+    """K = 5 pads to 8; K = 20 runs as chunks of 16 and 4: within 1e-6 of
+    the torch path, the products summing in another order."""
+    plan = hps.build_plan(64, 32, 8)
+    f = _random_factors(plan, (4,), seed=K)
+    b = _rhs((4,), K, 64 * 32, seed=K + 1)
+    want = hps._solve_cols(f, plan, b.movedim(-1, -2).contiguous()).movedim(-1, -2)
+    got = fdfd_hps.hps_sweeps_reference(*hps._sweep_operands(f, plan, b.device), b)
+    err = torch.linalg.vector_norm(got - want, dim=-1) / torch.linalg.vector_norm(want, dim=-1)
+    assert float(err.max()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["cpu", "complex128", "non-contiguous b"])
+def test_level_kernel_wrapper_refuses(case):
+    """The kernel takes CUDA complex64 contiguous tensors only: the wrapper
+    raises before any launch, and hps_solve keeps such inputs on the torch
+    path."""
+    plan = hps.build_plan(32, 32, 8)
+    dtype = torch.complex128 if case == "complex128" else torch.complex64
+    f = _random_factors(plan, (4,), seed=1, dtype=dtype)
+    b = _rhs((4,), 3, 32 * 32, seed=2, dtype=dtype)
+    if case == "non-contiguous b":
+        b = b.transpose(0, 1).contiguous().transpose(0, 1)
+    match = {"cpu": "on cpu", "complex128": "complex64 only", "non-contiguous b": "contiguous"}
+    before = trace.counters()
+    with pytest.raises(ValueError, match=match[case]):
+        fdfd_hps.hps_sweeps(*hps._sweep_operands(f, plan, b.device), b)
+    assert not hps._on_card(f, b)
+    assert trace.delta(before, "fdfd.kernels.hps_sweeps") == 0
+
+
+def test_level_kernel_wrapper_refuses_mismatched_shapes():
+    plan = hps.build_plan(32, 32, 8)
+    f = _random_factors(plan, (4,), seed=3)
+    leaf, levels, Yroot = hps._sweep_operands(f, plan, torch.device("cpu"))
+    with pytest.raises(ValueError, match="b has shape"):
+        fdfd_hps.hps_sweeps_reference(leaf, levels, Yroot, _rhs((4,), 2, 32 * 31, seed=4))
+    with pytest.raises(ValueError, match="do not merge"):
+        fdfd_hps.hps_sweeps_reference(leaf, levels[1:], Yroot, _rhs((4,), 2, 32 * 32, seed=4))
+    with pytest.raises(ValueError, match="int32"):
+        fdfd_hps.hps_sweeps_reference((leaf[0], leaf[1], leaf[2].long()), levels, Yroot,
+                                      _rhs((4,), 2, 32 * 32, seed=4))
+
+
+@pytest.mark.parametrize("K, down, level, want", [
+    # the leaf up: 64 rows an item (Y's 36, E's 28 columns), its 36 terms in one stage
+    (16, False, "leaf", dict(tc=36, ni=2, blocks=65536, smem=57_600)),
+    (16, True, "leaf", dict(tc=28, ni=3, blocks=36864, smem=53_888)),
+    # the lowest merge down: 12 rows an item, seven items a block, 44 terms in two chunks
+    (16, True, 0, dict(tc=22, ni=7, blocks=6144, smem=67_904)),
+    # the top merge up: 384 blocks, more than the SMs: a ring for two CTAs an SM
+    (16, False, 13, dict(tc=72, ni=2, blocks=384, smem=115_200)),
+    # the top merge down: 128 blocks, one wave: a ring for one CTA an SM
+    (16, True, 13, dict(tc=128, ni=2, blocks=128, smem=205_824)),
+    (1, False, "leaf", dict(tc=18, ni=5, blocks=16384, smem=75_168)),
+    (1, True, 13, dict(tc=54, ni=2, blocks=32, smem=227_008)),
+])
+def test_plan_level_from_shapes(K, down, level, want):
+    """The tiling of the 2048^2 cell's launches (four sublattices of
+    1024^2, leaf 8) from the shapes alone, on an H100's SMs and shared
+    memory: rows a block by the padded chunk, the most items a block meets,
+    and the even term chunk that splits the terms most evenly among the
+    fewest chunks whose two-stage ring fits two CTAs an SM, or one where the
+    blocks do not fill the SMs once."""
+    plan = hps.build_plan(1024, 1024, 8)
+    lf = plan.leaf
+    P, nJ, nR = ((lf.n_boxes, len(lf.idx_I), len(lf.idx_R)) if level == "leaf" else
+                 (plan.merges[level].n_parents, len(plan.merges[level].idx_J),
+                  len(plan.merges[level].idx_R)))
+    lp = fdfd_hps.plan_level(4 * P, nJ, nR, fdfd_hps.kpad(K), down, *fdfd_hps.H100)
+    got = dict(tc=lp.tc, ni=lp.ni, blocks=lp.blocks, smem=lp.smem)
+    assert got == want
+    assert lp.tc % 2 == 0 and lp.smem <= fdfd_hps.H100[1]
+    rows = fdfd_hps.rows_a_block(lp.kp)
+    # every block of rows meets at most ni items
+    assert all((q0 + rows - 1) // lp.rows - q0 // lp.rows + 1 <= lp.ni
+               for q0 in range(0, min(lp.items * lp.rows, 64 * rows), rows))
+
+
+def test_plan_level_refuses():
+    with pytest.raises(ValueError, match="kp 3"):
+        fdfd_hps.plan_level(4, 12, 44, 3, False)
+    with pytest.raises(ValueError, match="does not fit"):
+        fdfd_hps.plan_level(4, 12, 44, 16, False, 132, 1024)
