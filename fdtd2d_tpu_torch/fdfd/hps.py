@@ -58,14 +58,22 @@ Spans and counters (utils/trace.py): ``fdfd.hps.factor`` around
 split in, the merge back out; the torch path's transposes), ``fdfd.hps.up``
 (the leaf fold and the upward merges), ``fdfd.hps.root`` and
 ``fdfd.hps.down`` (the downward back-substitution to grid order); counters
-``fdfd.hps.solves``, one an inner solve, and ``fdfd.hps.levels``, merge
-levels walked, up plus down. None of them synchronizes with the device.
+``fdfd.hps.solves``, one an inner solve, ``fdfd.hps.levels``, merge
+levels walked, up plus down, and ``fdfd.hps.factors``, one a member
+factored. None of them synchronizes with the device.
+
+An operator stacked over omega (ops/helmholtz.py ``stack_operators``)
+factors as one batch on a member axis behind the sublattices' (the
+adjoint inverse design of apps/inverse_design.py, one factor a frequency);
+:func:`hps_solve` then takes each member's right-hand sides to its own
+factor, and the level kernels take the (4, F) leading axes as groups.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import List, Tuple
 
 import numpy as np
@@ -309,10 +317,13 @@ class SubHPSFactors:
 @dataclasses.dataclass(frozen=True)
 class HPSFactors:
     """HPS factors of the four sublattices, stacked on a leading axis of 4
-    (the JAX package keeps a tuple of four with the same leaves)."""
+    (the JAX package keeps a tuple of four with the same leaves), then the
+    operator's own batch axes (``batch``: (F,) for an operator stacked over
+    omega, one factor a member)."""
     stacked: SubHPSFactors
     shape: Tuple[int, int]
     m: int
+    batch: Tuple[int, ...] = ()
 
 
 def _inv_wide(A):
@@ -435,16 +446,25 @@ def _sub_coefficients(op: HelmholtzOperator):
     return [torch.stack(split_sublattices(a)) for a in (d, e, s)]
 
 
-def hps_factor(op: HelmholtzOperator, m: int = 8) -> HPSFactors:
+def hps_factor(op: HelmholtzOperator, m: int = 8, dtype=None) -> HPSFactors:
     """Factor the full outrigger operator: four sublattice HPS trees as one
-    batch (even N: the plans need the four sublattices' common shape)."""
+    batch (even N: the plans need the four sublattices' common shape). An
+    operator stacked over omega factors every member in the same batch, on
+    a member axis after the sublattices' ((4, F, ...) factors). ``dtype``:
+    the coefficients' and so the store's dtype (default the operator's),
+    e.g. complex64 factors of a complex128 operator. Counter
+    ``fdfd.hps.factors``: one a member factored."""
     Nx, Ny = op.shape
     if Nx % 2 or Ny % 2:
         raise ValueError(f"HPS factors need even N, got {(Nx, Ny)}")
     with span("fdfd.hps.factor"):
         stacked = _sub_coefficients(op)
+        if dtype is not None:
+            stacked = [a.to(dtype) for a in stacked]
         plan = build_plan(*stacked[0].shape[-2:], m)
-        return HPSFactors(stacked=hps_factor_sub(*stacked, plan), shape=op.shape, m=m)
+        count("fdfd.hps.factors", math.prod(op.batch_shape))
+        return HPSFactors(stacked=hps_factor_sub(*stacked, plan), shape=op.shape, m=m,
+                          batch=op.batch_shape)
 
 
 def _tensors(f: SubHPSFactors):
@@ -473,11 +493,13 @@ def predicted_factor_bytes(N: int, m: int = 8, itemsize: int = 8) -> int:
 
 def hps_solve(f: HPSFactors, b) -> torch.Tensor:
     """x = A^{-1} b from HPS factors; b (Nx, Ny) complex, or (K, Nx, Ny)
-    (K right-hand sides against the one factorization)."""
+    (K right-hand sides against the one factorization); for factors of a
+    stacked operator, batch + (Nx, Ny) or batch + (K, Nx, Ny), each member's
+    right-hand sides against its own factor."""
     count("fdfd.hps.solves")
     Nx, Ny = f.shape
     with span("fdfd.hps.split"):
-        bk = b.reshape(-1, Nx, Ny)
+        bk = b.reshape(f.batch + (-1, Nx, Ny))
         b4 = torch.stack(split_sublattices(bk))  # (4, K, nr, nc)
         plan = build_plan(b4.shape[-2], b4.shape[-1], f.m)
     x4 = _solve(f.stacked, plan, b4.flatten(-2))

@@ -29,7 +29,12 @@ and the counters ``fdfd.hps.solves`` (one an inner solve) and
 the card the sweep spans and levels are opened and counted by
 ops/fdfd_hps.py, once a chunk of 16 right-hand sides);
 ``fdfd.kernels.hps_sweeps``, the launches of the HPS level kernel, one a
-level and direction, the leaf included (ops/fdfd_hps.py).
+level and direction, the leaf included (ops/fdfd_hps.py); the counter
+``fdfd.hps.factors``, one a member factored (fdfd/hps.py);
+``fdfd.adjoint.forward`` and ``fdfd.adjoint.backward`` around the HPS
+adjoint solve's two directions and the counter ``fdfd.adjoint.solves``, one
+a member a direction (fdfd/autodiff.py); ``invdes.step`` around a design
+step (apps/inverse_design.py).
 """
 
 from __future__ import annotations

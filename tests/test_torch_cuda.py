@@ -1029,6 +1029,36 @@ def test_hps_sweeps_match_solve_cols_on_random_factors(dev, N, K):
     assert err <= HPS_TOL and err_walk <= HPS_TOL, (err, err_walk)
 
 
+def test_hps_design_step_takes_the_level_kernel_with_a_member_axis(dev):
+    """A decade-style design step (apps/inverse_design.py, solver "hps") at
+    128^2 over 3 omegas: on the card one set of level launches an inner
+    solve for every member (the (4, F) groups), none on the CPU (the torch
+    path), and the card's loss and gradient within 1e-6 and 1e-5 of the
+    CPU's, both refined to 1e-6."""
+    from fdtd2d_tpu_torch.apps import inverse_design as invdes
+    from fdtd2d_tpu_torch.fdfd import hps
+
+    N = 128
+    d0 = None
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        p = invdes.lowpass_problem(N=N, n_freqs=3, device=device)
+        rs, cs = p.design_region
+        if d0 is None:
+            d0 = np.random.default_rng(0).uniform(1.0, 3.0, (rs.stop - rs.start, cs.stop - cs.start))
+        state = invdes.design_state(p, solver="hps", design0=torch.as_tensor(d0))
+        before = trace.counters()
+        step = invdes.design_step(state)
+        out[device.type] = (float(step.loss), step.grad.cpu(),
+                            trace.delta(before, "fdfd.kernels.hps_sweeps"),
+                            trace.delta(before, "fdfd.hps.solves"))
+    launches = 2 * (len(hps.build_plan(N // 2, N // 2, 8).merges) + 1)
+    loss, grad, swept, solves = out["cuda"]
+    assert solves >= 2 and swept == launches * solves and out["cpu"][2] == 0
+    assert abs(loss - out["cpu"][0]) <= 1e-6 * out["cpu"][0]
+    assert float((grad - out["cpu"][1]).norm() / out["cpu"][1].norm()) <= 1e-5
+
+
 def test_hps_solve_batched_takes_the_level_kernel(dev, monkeypatch):
     """DirectSolver(hps=True).solve_batched at 256^2: 2 (levels + 1) launches
     an inner solve, and the same refinement rounds as the torch path in the
